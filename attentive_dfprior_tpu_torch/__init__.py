@@ -7,8 +7,10 @@ for one NVIDIA Hopper card:
   - plain fp32 PyTorch for every dense op, with TF32 off (set here, once,
     for the whole process — the JAX reference computes in full fp32);
   - hand-written CUDA kernels (``csrc/``, built with nvcc on first use) for
-    the two TPU kernels on the strict-mode SLAM path: the halo grid-gradient
-    fold and the fused decoder MLP (``ops/cuda/``).
+    the three TPU kernels: the halo grid-gradient fold, the fused decoder
+    MLP and the cell stencil (``ops/cuda/``);
+  - a native host library (``native/``, built with g++ on first use) for
+    marching tetrahedra and depth rasterization.
 
 The package imports torch, numpy and scipy only. Entry points run on the
 card unless the caller asks for the CPU (``device="cpu"``).

@@ -12,7 +12,8 @@ dict/list tree as the JAX pytree, with the same layouts:
 ``df_forward`` is the stage-dispatched scene query ('low' | 'high' |
 'color'). With ``fused=True`` (no-gradient paths only) each decoder MLP runs
 through K2, the hand-written CUDA decoder kernel, on a CUDA tensor and
-through its plain version on a CPU tensor.
+through its plain version on a CPU tensor. ``grid_vjp`` names the
+feature grids' gradient variant (``ops/grid_sample.py:GRID_VJPS``).
 """
 
 from __future__ import annotations
@@ -203,6 +204,7 @@ def df_forward(
     bound: torch.Tensor,
     stage: str = "color",
     fused: bool = False,
+    grid_vjp: str = "halo",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage-dispatched scene query (ref: decoder.py:307-353).
 
@@ -213,12 +215,14 @@ def df_forward(
         tsdf_volume: (X, Y, Z); tsdf_bnds, bound: (3, 2).
         stage: 'low' | 'high' | 'color'.
         fused: decoder MLPs through K2 (no-gradient paths only).
+        grid_vjp: the feature grids' gradient variant; the TSDF prior's
+            sampler does not depend on it.
 
     Returns:
         raw (N, 4) [rgb, occ], attention weight (N,).
     """
     n = p.shape[0]
-    c_low = sample_feature_grid(grids["grid_low"], p, bound)
+    c_low = sample_feature_grid(grids["grid_low"], p, bound, grid_vjp)
     low_occ = _decoder_eval(params["low"], p, c_low, fused)
     if stage == "low":
         raw = torch.cat([torch.zeros((n, 3), dtype=low_occ.dtype, device=p.device), low_occ[:, None]], dim=-1)
@@ -226,14 +230,15 @@ def df_forward(
 
     # the high decoder sees its own feature and a detached low feature
     # (ref: decoder.py:182-187); in the color stage the high and color grids
-    # are sampled as one fused pair (one doubled-width scatter + fold)
+    # are sampled as one fused pair (one doubled-width scatter + fold) under
+    # the fold variants, one by one under the others
     c_color = None
     if stage == "color":
         c_high, c_color = sample_feature_grid_pair(
-            grids["grid_high"], grids["grid_color"], p, bound
+            grids["grid_high"], grids["grid_color"], p, bound, grid_vjp
         )
     else:
-        c_high = sample_feature_grid(grids["grid_high"], p, bound)
+        c_high = sample_feature_grid(grids["grid_high"], p, bound, grid_vjp)
     c_high = torch.cat([c_high, c_low.detach()], dim=-1)
     high_occ = _decoder_eval(params["high"], p, c_high, fused)
     f_add_m_occ = high_occ + low_occ

@@ -13,6 +13,10 @@ difference that matters for parity with the reference's per-frame optimizer
     learning rate is 0 (the JAX mapper differentiates every leaf and zeroes
     only the rate, ref: slam/mapper.py:299).
 
+``lazy=False`` is the port of the JAX package's ``DFPRIOR_ADAM_LAZY=0``
+(ref: ops/adam.py:45-52, 99-104): every leaf counts as touched in every
+step, a missing gradient as all-zero, so every step counter advances.
+
 The update is branch-free on the device (no host sync per leaf) and in
 place under ``torch.no_grad()``: the JAX package donated these buffers.
 """
@@ -49,6 +53,7 @@ def adam_update(
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
+    lazy: bool = True,
 ) -> None:
     """One Adam step, in place on ``params`` and ``state``.
 
@@ -58,6 +63,7 @@ def adam_update(
             ``None`` entries count as all-zero.
         state: AdamState from adam_init.
         lr_tree: matching tree of float learning rates (or scalar tensors).
+        lazy: the per-leaf rule above; False steps every leaf.
     """
     ps: List[torch.Tensor] = tree_leaves(params)
     gs: List[Optional[torch.Tensor]] = grads if isinstance(grads, list) else tree_leaves(grads)
@@ -65,8 +71,10 @@ def adam_update(
     lrs = tree_leaves(lr_tree)
     for p, g, s, m, v, lr in zip(ps, gs, ss, ms, vs, lrs):
         if g is None:
-            continue
-        touched = torch.any(g != 0)
+            if lazy:
+                continue
+            g = torch.zeros_like(p)
+        touched = torch.any(g != 0) if lazy else torch.ones((), dtype=torch.bool, device=p.device)
         s.add_(touched.to(torch.int32))
         m.copy_(torch.where(touched, b1 * m + (1 - b1) * g, m))
         v.copy_(torch.where(touched, b2 * v + (1 - b2) * (g * g), v))

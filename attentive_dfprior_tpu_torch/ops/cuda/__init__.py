@@ -1,3 +1,3 @@
 """Hand-written CUDA kernels (sources in ``csrc/``) with their plain
 PyTorch versions and launch counters: K1 the halo fold, K2 the fused
-decoder MLP."""
+decoder MLP, K3 the cell stencil."""

@@ -68,6 +68,14 @@ class CudaKernel:
         return self._lib
 
 
+def port_kernels() -> List[CudaKernel]:
+    """Every hand-written kernel of the port: K1 (halo fold), K2 (decoder
+    MLP), K3 (cell stencil)."""
+    from attentive_dfprior_tpu_torch.ops.cuda import decoder_kernel, halo_fold_kernel, stencil_kernel
+
+    return [halo_fold_kernel.KERNEL, decoder_kernel.KERNEL, stencil_kernel.KERNEL]
+
+
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
     """Compile every kernel whose library is missing, one nvcc process per
     source, all started together. Returns {name: seconds} for the builds

@@ -102,6 +102,7 @@ def render_rays(
     generator: Optional[torch.Generator] = None,
     fused: bool = False,
     no_gt_depth: bool = False,
+    grid_vjp: str = "halo",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render a batch of rays (ref: Renderer.py:110-255).
 
@@ -111,6 +112,7 @@ def render_rays(
         stage: 'low' | 'high' | 'color'.
         fused: decoder MLPs through K2 (no-gradient paths only).
         no_gt_depth: render without sensor depth (``gt_depth`` ignored).
+        grid_vjp: the feature grids' gradient variant (``df_forward``).
 
     Returns:
         depth (R,), depth_var (R,), color (R, 3), att_weight (R, S).
@@ -125,7 +127,8 @@ def render_rays(
     R, S = z_vals.shape
     flat = pts.reshape(-1, 3)
     raw, att_w = df_forward(
-        params, flat, params, tsdf_volume, tsdf_bnds, bound, stage=stage, fused=fused
+        params, flat, params, tsdf_volume, tsdf_bnds, bound, stage=stage, fused=fused,
+        grid_vjp=grid_vjp,
     )
     # out-of-bound points: occupancy 100, an opaque wall at the bound
     # (ref: Renderer.py:49-64)

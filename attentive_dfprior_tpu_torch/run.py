@@ -2,9 +2,14 @@
 
 Usage:
     python -m attentive_dfprior_tpu_torch.run configs/Synthetic/room_tracking.yaml \\
-        [--end_idx N] [--output O] [--seed S] [--device cuda|cpu] [--set key.sub=value ...]
+        [--end_idx N] [--output O] [--seed S] [--device cuda|cpu]
+        [--grid-vjp halo|bitfold|cellstencil|xla|sorted|pallas] [--adam-nonlazy]
+        [--set key.sub=value ...]
 
-Runs on the card unless ``--device cpu`` is given. ``--set`` overrides
+Runs on the card unless ``--device cpu`` is given. ``--grid-vjp`` selects
+the feature grids' gradient variant and ``--adam-nonlazy`` steps every
+Adam leaf in every iteration: the JAX package's ``DFPRIOR_TRILINEAR_VJP``
+and ``DFPRIOR_ADAM_LAZY=0``. ``--set`` overrides
 config entries after loading (values parsed as YAML scalars), e.g.
 ``--set loop_closure.enable=False --set loop_closure.final_refine=False``.
 """
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from attentive_dfprior_tpu_torch.config import default_config_path, load_config, parse_yaml
+from attentive_dfprior_tpu_torch.ops.grid_sample import GRID_VJPS
 
 
 def apply_overrides(cfg: Dict[str, Any], overrides: List[str]) -> None:
@@ -42,6 +48,10 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--end_idx", type=int, default=None, help="stop before this frame")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--grid-vjp", default="halo", choices=GRID_VJPS,
+                        help="grid-gradient variant of the feature-grid samplers")
+    parser.add_argument("--adam-nonlazy", action="store_true",
+                        help="step every Adam leaf each iteration (no per-leaf lazy rule)")
     parser.add_argument("--set", dest="overrides", action="append", default=[],
                         help="config override key.sub=value (repeatable)")
     args = parser.parse_args(argv)
@@ -55,7 +65,7 @@ def main(argv: Optional[List[str]] = None):
     cfg = load_config(args.config, default_config_path())
     apply_overrides(cfg, args.overrides)
     cfg["seed"] = args.seed
-    slam = SLAMSystem(cfg, args, device=args.device)
+    slam = SLAMSystem(cfg, args, device=args.device, grid_vjp=args.grid_vjp, adam_lazy=not args.adam_nonlazy)
     slam.run(end_idx=args.end_idx)
     return slam
 

@@ -75,12 +75,14 @@ def mapping_loss_fn(
     rcfg: RenderConfig,
     w_color_loss: float,
     w_reg: float,
+    grid_vjp: str = "halo",
 ) -> torch.Tensor:
     """Mapping loss (ref: src/Mapper.py:451-469): depth L1 over valid in-bound
     rays, the |attention weight - 1| warm-up regularizer (weight ``w_reg``),
     and color L1 in the color stage."""
     depth, _, color, att_w = render_rays(
-        params, rays_o, rays_d, gt_depth, tsdf_volume, tsdf_bnds, bound, stage, rcfg
+        params, rays_o, rays_d, gt_depth, tsdf_volume, tsdf_bnds, bound, stage, rcfg,
+        grid_vjp=grid_vjp,
     )
     depth_mask = (gt_depth > 0) & inside_mask
     loss = torch.sum(torch.abs(gt_depth - depth) * depth_mask)
@@ -115,6 +117,8 @@ def mapping_stage(
     ba: bool = False,
     pose_mask: Optional[torch.Tensor] = None,
     ba_cam_lr: float = 0.0,
+    grid_vjp: str = "halo",
+    adam_lazy: bool = True,
 ) -> torch.Tensor:
     """Run one optimization stage of ``n_iters`` iterations in place on
     ``params`` and ``adam_state`` (ref: slam/mapper.py:125-310).
@@ -130,6 +134,10 @@ def mapping_stage(
         accum: k-fold larger ray batch per Adam step, loss scaled 1/k.
         ba: optimize the window poses too; ``pose_mask`` (F,) zeroes the
             anchor's pose gradient; ``ba_cam_lr`` is the poses' rate.
+        grid_vjp: the feature grids' gradient variant
+            (``ops/grid_sample.py:GRID_VJPS``).
+        adam_lazy: Adam's per-leaf lazy rule (``ops/adam.py``); False steps
+            every leaf.
 
     Returns:
         (n_iters,) per-iteration losses.
@@ -161,13 +169,13 @@ def mapping_stage(
         inside = ray_bound_intersection(ro.detach(), rd.detach(), bound) >= gd
         loss = mapping_loss_fn(
             scene, ro, rd, gd, gc, inside, tsdf_volume, tsdf_bnds, bound,
-            stage, rcfg, w_color_loss, float(w_reg_flags[it]),
+            stage, rcfg, w_color_loss, float(w_reg_flags[it]), grid_vjp,
         )
         if accum != 1:
             loss = loss / accum
         grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
         grads = _mask_grads(params, grads, ba, pose_mask, frustum_masks)
-        adam_update(params, grads, adam_state, lr_tree)
+        adam_update(params, grads, adam_state, lr_tree, lazy=adam_lazy)
         losses.append(loss.detach())
     return torch.stack(losses) if losses else torch.zeros(0)
 
@@ -259,7 +267,8 @@ def get_frustum_mask(
 
 
 class Mapper:
-    """Host-side mapping agent driving the stage loops."""
+    """Host-side mapping agent driving the stage loops; ``grid_vjp`` and
+    ``adam_lazy`` as in ``mapping_stage``."""
 
     def __init__(
         self,
@@ -270,8 +279,12 @@ class Mapper:
         tsdf_volume: torch.Tensor,
         tsdf_bnds: np.ndarray,
         device: torch.device,
+        grid_vjp: str = "halo",
+        adam_lazy: bool = True,
     ):
         m = cfg["mapping"]
+        self.grid_vjp = grid_vjp
+        self.adam_lazy = adam_lazy
         self.cfg = cfg
         self.cam = cam
         self.scene_cfg = scene_cfg
@@ -419,7 +432,8 @@ class Mapper:
                 generator=generator,
                 pixel_idx=None if pixel_idx is None else pixel_idx[stage],
                 accum=self.accum, ba=ba_on, pose_mask=pose_mask,
-                ba_cam_lr=self.ba_cam_lr,
+                ba_cam_lr=self.ba_cam_lr, grid_vjp=self.grid_vjp,
+                adam_lazy=self.adam_lazy,
             )
         for stage, ls in stage_losses.items():
             losses[stage] = float(ls[-1])

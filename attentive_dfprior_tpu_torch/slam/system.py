@@ -7,11 +7,18 @@ src/DF_Prior.py:23-311). ``sync_method: strict`` runs
     track(i) -> [map(i) if i % every_frame == 0 or i is last] -> track(i+1)
 
 with the scene handed to the tracker as an argument. Side outputs are the
-checkpoints and ``metrics.jsonl``.
+checkpoints, ``metrics.jsonl`` and the meshes (``mesh/<idx>_mesh.ply``
+every ``mesh_freq`` frames, ``mesh/final_mesh.ply`` and, with
+``meshing.eval_rec``, ``mesh/final_mesh_eval_rec.ply`` at the last frame).
+
+Three prior volumes, as in the JAX package: tracking reads the
+reference-faithful one (unobserved voxels at -1); mapping reads it too, or
+a filled copy under ``tsdf.fill_unobserved_train``; meshing reads a copy
+filled by ``tsdf.fill_unobserved`` (``tsdf/fusion.py:fill_unobserved_volume``).
 
 Not in this port yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): the async sync modes, ``parallel.enable``, loop closure,
-the visualizer and meshing.
+ROADMAP.md item): the async sync modes, ``parallel.enable``, loop closure
+and the visualizer.
 """
 
 from __future__ import annotations
@@ -26,14 +33,17 @@ import torch
 
 from attentive_dfprior_tpu_torch.camera import Camera
 from attentive_dfprior_tpu_torch.models.scene import SceneConfig, init_scene
+from attentive_dfprior_tpu_torch.ops.grid_sample import grid_sampler
 from attentive_dfprior_tpu_torch.ops.pose import clamp_pose_update
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, Renderer
 from attentive_dfprior_tpu_torch.slam.keyframes import KeyframeStore, keyframe_selection_overlap
 from attentive_dfprior_tpu_torch.slam.mapper import Mapper
 from attentive_dfprior_tpu_torch.slam.tracker import Tracker
+from attentive_dfprior_tpu_torch.tsdf.fusion import fill_unobserved_volume, legacy_observed_mask
 from attentive_dfprior_tpu_torch.utils.datasets import get_dataset
 from attentive_dfprior_tpu_torch.utils.device import resolve_device
 from attentive_dfprior_tpu_torch.utils.logger import Logger
+from attentive_dfprior_tpu_torch.utils.mesher import Mesher
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -52,10 +62,10 @@ def load_tsdf_volume(cfg: Dict[str, Any], args=None, device: torch.device = torc
     the dataset on the fly (the synthetic configs).
 
     Returns:
-        (tsdf (X, Y, Z) tensor on ``device``, bounds (3, 2) numpy).
+        (tsdf (X, Y, Z) tensor on ``device``, bounds (3, 2) numpy, observed
+        (X, Y, Z) bool mask: the cache's, else recovered from the values by
+        ``legacy_observed_mask``, else the fusion weights).
     """
-    if str(cfg.get("tsdf", {}).get("fill_unobserved_train", "reference")) != "reference":
-        raise _not_ported("tsdf.fill_unobserved_train", "'Mesher' (observed-mask fills)")
     dataset = cfg["data"]["dataset"]
     scene_id = cfg["data"]["id"]
     base = f"{dataset}_tsdf_volume"
@@ -68,22 +78,24 @@ def load_tsdf_volume(cfg: Dict[str, Any], args=None, device: torch.device = torc
         cached_voxel = float(data["voxel_size"]) if "voxel_size" in data else None
         if cached_voxel is None or abs(cached_voxel - cfg_voxel) < 1e-9:
             print(f"TSDF prior: loaded cache {npz_path} (shape {data['tsdf'].shape})")
-            vol = torch.as_tensor(np.asarray(data["tsdf"], dtype=np.float32), device=device)
-            return vol, np.asarray(data["bounds"])
+            tsdf = np.asarray(data["tsdf"], dtype=np.float32)
+            observed = np.asarray(data["observed"]) if "observed" in data else legacy_observed_mask(tsdf)
+            return torch.as_tensor(tsdf, device=device), np.asarray(data["bounds"]), observed
         print(f"TSDF cache {npz_path} voxel_size {cached_voxel} != configured {cfg_voxel}; rebuilding")
     if os.path.exists(pt_path):
         vol = torch.load(pt_path, map_location="cpu")
         # reference layout [1, 1, Z, Y, X] (ref: get_tsdf.py:95-97) -> (X, Y, Z)
-        vol = vol[0, 0].permute(2, 1, 0).contiguous().float().to(device)
+        vol = vol[0, 0].permute(2, 1, 0).contiguous().float()
         bnds = torch.load(os.path.join(base, f"{prefix}_bounds.pt"), map_location="cpu")
-        return vol, np.asarray(bnds)
+        # the reference saves no weights: recover the mask from the values
+        return vol.to(device), np.asarray(bnds), legacy_observed_mask(vol.numpy())
 
     from attentive_dfprior_tpu_torch.tsdf.builder import build_tsdf_volume
 
     space = int(cfg.get("tsdf", {}).get("space", 10))
     print(f"TSDF prior: fusing on the fly (voxel {cfg_voxel}, every {space} frames)")
-    tsdf, bounds, _ = build_tsdf_volume(cfg, args, space=space, voxel_size=cfg_voxel, device=device)
-    return tsdf, bounds
+    tsdf, bounds, vol = build_tsdf_volume(cfg, args, space=space, voxel_size=cfg_voxel, device=device)
+    return tsdf, bounds, vol.observed_mask()
 
 
 def resolve_pretrained(cfg: Dict[str, Any]) -> Optional[str]:
@@ -106,9 +118,23 @@ class SLAMSystem:
         args: optional CLI namespace (``output``, ``input_folder``).
         output: output directory (default: ``args.output`` or the config's).
         device: the card by default; ``"cpu"`` runs the plain path.
+        grid_vjp: the feature grids' gradient variant in mapping and
+            tracking (``ops/grid_sample.py:GRID_VJPS``; the JAX package's
+            ``DFPRIOR_TRILINEAR_VJP``).
+        adam_lazy: Adam's per-leaf lazy rule; False is the JAX package's
+            ``DFPRIOR_ADAM_LAZY=0``.
     """
 
-    def __init__(self, cfg: Dict[str, Any], args=None, output: Optional[str] = None, device=None):
+    def __init__(
+        self,
+        cfg: Dict[str, Any],
+        args=None,
+        output: Optional[str] = None,
+        device=None,
+        grid_vjp: str = "halo",
+        adam_lazy: bool = True,
+    ):
+        grid_sampler(grid_vjp)  # an unknown name raises here, not mid-run
         self.device = resolve_device(device)
         self.cfg = cfg
         sync = cfg.get("sync_method", "strict")
@@ -122,15 +148,21 @@ class SLAMSystem:
 
         self.verbose = bool(cfg.get("verbose", False))
         self.output = output or (getattr(args, "output", None) or cfg["data"]["output"])
-        os.makedirs(self.output, exist_ok=True)
+        os.makedirs(os.path.join(self.output, "mesh"), exist_ok=True)
         self.cam = Camera.from_config(cfg)
         self.scale = cfg.get("scale", 1)
 
         # --- data + prior ---
         self.dataset = get_dataset(cfg, args, self.scale)
         self.n_img = len(self.dataset)
-        self.tsdf_volume, tsdf_bnds = load_tsdf_volume(cfg, args, self.device)
+        self.tsdf_volume, tsdf_bnds, observed = load_tsdf_volume(cfg, args, self.device)
         self.tsdf_bnds = np.asarray(tsdf_bnds, dtype=np.float32)
+        # the three priors (module docstring); the fills default as in
+        # configs/df_prior.yaml
+        tcfg = cfg.get("tsdf", {})
+        self.tsdf_volume_track = self.tsdf_volume
+        self.tsdf_volume_mesh = self._filled(observed, str(tcfg.get("fill_unobserved", "free")))
+        self.tsdf_volume = self._filled(observed, str(tcfg.get("fill_unobserved_train", "reference")))
 
         # --- scene state ---
         pretrained = resolve_pretrained(cfg)
@@ -152,11 +184,14 @@ class SLAMSystem:
         )
         self.renderer = Renderer(self.rcfg, self.scene_cfg.bound, self.tsdf_bnds, self.cam, self.device)
         self.mapper = Mapper(
-            cfg, self.cam, self.scene_cfg, self.rcfg, self.tsdf_volume, self.tsdf_bnds, self.device
+            cfg, self.cam, self.scene_cfg, self.rcfg, self.tsdf_volume, self.tsdf_bnds, self.device,
+            grid_vjp=grid_vjp, adam_lazy=adam_lazy,
         )
         self.tracker = Tracker(
-            cfg, self.cam, self.rcfg, self.scene_cfg.bound, self.tsdf_volume, self.tsdf_bnds, self.device
+            cfg, self.cam, self.rcfg, self.scene_cfg.bound, self.tsdf_volume_track, self.tsdf_bnds, self.device,
+            grid_vjp=grid_vjp, adam_lazy=adam_lazy,
         )
+        self.mesher = Mesher(cfg, self.cam, self.scene_cfg.bound, self.tsdf_bnds, self.device)
         self.logger = Logger(os.path.join(self.output, "ckpts"), self.verbose)
         self.save_selected_keyframes_info = bool(cfg["mapping"].get("save_selected_keyframes_info", False))
         self.selected_keyframes: Dict[int, list] = {}
@@ -165,15 +200,19 @@ class SLAMSystem:
         self.every_frame = int(m["every_frame"])
         self.keyframe_every = int(m["keyframe_every"])
         self.ckpt_freq = int(m["ckpt_freq"])
+        self.mesh_freq = int(m["mesh_freq"])
         self.color_refine = bool(m.get("color_refine", True))
         self.no_log_on_first_frame = bool(m.get("no_log_on_first_frame", True))
+        self.no_mesh_on_first_frame = bool(m.get("no_mesh_on_first_frame", True))
+        self.eval_rec = bool(cfg["meshing"].get("eval_rec", False))
         cap = int(m.get("keyframe_capacity", max(8, self.n_img // self.keyframe_every + 4)))
         self.keyframes = KeyframeStore(cap, self.cam.H, self.cam.W, self.device)
 
         self.estimate_c2w_list = np.zeros((self.n_img, 4, 4), dtype=np.float32)
         self.gt_c2w_list = np.zeros((self.n_img, 4, 4), dtype=np.float32)
         self._np_rng = np.random.default_rng(seed)
-        self.timings: Dict[str, float] = {"track": 0.0, "map": 0.0}
+        self.timings: Dict[str, float] = {"track": 0.0, "map": 0.0, "mesh": 0.0}
+        self.last_idx: Optional[int] = None  # the last frame run() processed
         self._metrics_path = os.path.join(self.output, "metrics.jsonl")
 
     def _log_metrics(self, record: Dict[str, Any]) -> None:
@@ -184,11 +223,32 @@ class SLAMSystem:
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
 
+    def _filled(self, observed: np.ndarray, mode: str) -> torch.Tensor:
+        """The reference-faithful prior, or a copy with its unobserved
+        voxels filled by ``mode``."""
+        if mode == "reference":
+            return self.tsdf_volume_track
+        filled = fill_unobserved_volume(self.tsdf_volume_track.cpu().numpy(), observed, mode)
+        return torch.as_tensor(filled, device=self.device)
+
     # ------------------------------------------------------------------
 
-    def get_mesh(self, *args, **kwargs):
-        """Mesh extraction of the mapped scene."""
-        raise _not_ported("meshing", "'Mesher'")
+    def get_mesh(self, mesh_out_file: str, idx: Optional[int] = None, get_mask_use_all_frames: bool = False):
+        """Mesh the current scene into ``mesh_out_file`` (PLY), as the side
+        outputs do: the mesh prior, the keyframes' depths and poses, and with
+        ``get_mask_use_all_frames`` every estimated pose up to ``idx``
+        (default: the last frame run). Returns ``Mesher.get_mesh``'s
+        (verts, faces), or None when there is no surface."""
+        idx = self.last_idx if idx is None else idx
+        K = len(self.keyframes)
+        t0 = time.time()
+        out = self.mesher.get_mesh(
+            mesh_out_file, self.params, self.tsdf_volume_mesh, self.keyframes.depth[:K].cpu().numpy(),
+            self.keyframes.poses_np(), self.estimate_c2w_list, idx,
+            get_mask_use_all_frames=get_mask_use_all_frames,
+        )
+        self.timings["mesh"] += time.time() - t0
+        return out
 
     def visualize(self, *args, **kwargs):
         """Rendered-vs-input panels."""
@@ -314,12 +374,14 @@ class SLAMSystem:
                     continue  # skip mapping (ref: Mapper.py:521-524)
                 if idx % self.every_frame == 0 or idx == n - 1:
                     self._map_frame(idx, color, depth, self.estimate_c2w_list[idx], gt_c2w, first=False)
+            self.last_idx = idx
             self._side_outputs(idx, n)
         return self.estimate_c2w_list
 
     def _side_outputs(self, idx: int, n: int) -> None:
-        """Checkpoints (ref: src/Mapper.py:574-602) every ckpt_freq frames
-        and at the last frame."""
+        """Checkpoints every ckpt_freq frames and meshes every mesh_freq
+        frames, both again at the last frame (ref: src/Mapper.py:574-602;
+        the JAX package's slam/system.py:827-893)."""
         last = idx == n - 1
         if (idx % self.ckpt_freq == 0 and not (idx == 0 and self.no_log_on_first_frame)) or last:
             K = len(self.keyframes)
@@ -329,3 +391,12 @@ class SLAMSystem:
                 keyframe_gt_c2w=np.array(self.keyframes.gt_c2w[:K]),
                 selected_keyframes=self.selected_keyframes if self.save_selected_keyframes_info else None,
             )
+        if len(self.keyframes) == 0:
+            return
+        mesh_dir = os.path.join(self.output, "mesh")
+        if idx % self.mesh_freq == 0 and not (idx == 0 and self.no_mesh_on_first_frame):
+            self.get_mesh(os.path.join(mesh_dir, f"{idx:05d}_mesh.ply"), idx)
+        if last:
+            self.get_mesh(os.path.join(mesh_dir, "final_mesh.ply"), idx)
+            if self.eval_rec:
+                self.get_mesh(os.path.join(mesh_dir, "final_mesh_eval_rec.ply"), idx, get_mask_use_all_frames=True)

@@ -55,6 +55,7 @@ def tracking_loss_fn(
     w_color_loss: float,
     generator: Optional[torch.Generator] = None,
     pixel_idx: Optional[torch.Tensor] = None,
+    grid_vjp: str = "halo",
 ) -> torch.Tensor:
     """One tracking iteration's loss (ref: src/Tracker.py:75-134): the
     variance-normalized depth L1 over valid in-bound rays with the dynamic
@@ -67,7 +68,9 @@ def tracking_loss_fn(
         generator, pixel_idx,
     )
     inside = ray_bound_intersection(ro.detach(), rd.detach(), bound) >= gd
-    depth, var, color, _ = render_rays(params, ro, rd, gd, tsdf_volume, tsdf_bnds, bound, "color", rcfg)
+    depth, var, color, _ = render_rays(
+        params, ro, rd, gd, tsdf_volume, tsdf_bnds, bound, "color", rcfg, grid_vjp=grid_vjp
+    )
     err = torch.abs(gd - depth) / torch.sqrt(var.detach() + 1e-10)
     if handle_dynamic:
         med = masked_lower_median(err.detach(), inside)
@@ -102,6 +105,8 @@ def track_frame(
     lr_final_factor: float = 1.0,
     generator: Optional[torch.Generator] = None,
     pixel_idx: Optional[torch.Tensor] = None,
+    grid_vjp: str = "halo",
+    adam_lazy: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Optimize the camera tensor for one frame; return the best candidate.
 
@@ -114,6 +119,9 @@ def track_frame(
 
     Args:
         pixel_idx: optional (n_iters, batch_size) replayed pixel draws.
+        grid_vjp: the feature grids' gradient variant (the scene is read
+            detached, so only its point gradient runs); adam_lazy: Adam's
+            per-leaf lazy rule.
 
     Returns:
         best tensor (7,), losses (n_iters,), final tensor (7,), pre-step
@@ -152,12 +160,14 @@ def track_frame(
             assemble(cam_params), params, color_im, depth_im, tsdf_volume,
             tsdf_bnds, bound, cam, rcfg, batch_size, ignore_edge_W,
             ignore_edge_H, handle_dynamic, use_color, w_color_loss, generator,
-            None if pixel_idx is None else pixel_idx[it],
+            None if pixel_idx is None else pixel_idx[it], grid_vjp,
         )
         grads = dict(zip(cam_params, torch.autograd.grad(loss, leaves)))
         with torch.no_grad():
             pre = assemble(cam_params).clone()
-            adam_update(cam_params, grads, astate, {k: lr * lr_scales[it] for k, lr in lr_tree.items()})
+            adam_update(
+                cam_params, grads, astate, {k: lr * lr_scales[it] for k, lr in lr_tree.items()}, lazy=adam_lazy
+            )
             better = loss.detach() < best_loss
             best_loss = torch.where(better, loss.detach(), best_loss)
             best_tensor = torch.where(better, assemble(cam_params), best_tensor)
@@ -168,7 +178,8 @@ def track_frame(
 
 
 class Tracker:
-    """Host-side tracking agent (ref: src/Tracker.py:150-274)."""
+    """Host-side tracking agent (ref: src/Tracker.py:150-274); ``grid_vjp``
+    and ``adam_lazy`` as in ``track_frame``."""
 
     def __init__(
         self,
@@ -179,8 +190,12 @@ class Tracker:
         tsdf_volume: torch.Tensor,
         tsdf_bnds: np.ndarray,
         device: torch.device,
+        grid_vjp: str = "halo",
+        adam_lazy: bool = True,
     ):
         t = cfg["tracking"]
+        self.grid_vjp = grid_vjp
+        self.adam_lazy = adam_lazy
         self.cam = cam
         self.rcfg = rcfg
         self.device = torch.device(device)
@@ -236,7 +251,7 @@ class Tracker:
             self.tracking_pixels, self.num_cam_iters, self.ignore_edge_W,
             self.ignore_edge_H, self.handle_dynamic, self.use_color,
             self.w_color_loss, self.cam_lr, self.seperate_LR,
-            self.lr_final_factor, generator, pixel_idx,
+            self.lr_final_factor, generator, pixel_idx, self.grid_vjp, self.adam_lazy,
         )
         with torch.no_grad():
             c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()

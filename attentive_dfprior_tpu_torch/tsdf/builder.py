@@ -1,14 +1,24 @@
 """TSDF-prior construction (the reference's get_tsdf.py pipeline).
 
-The port of the JAX package's ``tsdf/builder.py:build_tsdf_volume``: walk
-the dataset every ``space`` frames and fuse its depth into a device TSDF
-volume (ref: get_tsdf.py:44-138). Saving a mesh of the volume waits for the
-marching-cubes port (ROADMAP.md).
+The port of the JAX package's ``tsdf/builder.py``: walk the dataset every
+``space`` frames, fuse its depth into a device TSDF volume, and save the
+volume, its bounds, its observedness mask and a marching-cubes mesh
+(ref: get_tsdf.py:44-138).
+
+Usage (the port's counterpart of ``get_tsdf.py``):
+    python -m attentive_dfprior_tpu_torch.tsdf.builder configs/Synthetic/room.yaml \\
+        [--space N] [--output DIR] [--device cuda|cpu]
+
+writes ``DIR/<id>_tsdf_volume.npz`` and ``DIR/<id>_mesh.ply``; ``DIR``
+defaults to ``<dataset>_tsdf_volume``, where ``SLAMSystem`` looks for a
+cached prior. Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import argparse
+import os
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +27,7 @@ from attentive_dfprior_tpu_torch.camera import Camera
 from attentive_dfprior_tpu_torch.models.scene import load_bound
 from attentive_dfprior_tpu_torch.tsdf.fusion import TSDFVolume
 from attentive_dfprior_tpu_torch.utils.datasets import get_dataset
+from attentive_dfprior_tpu_torch.utils.ply import write_ply
 
 
 def build_tsdf_volume(
@@ -25,8 +36,10 @@ def build_tsdf_volume(
     space: int = 10,
     voxel_size: float = 4.0 / 256,
     device: torch.device = torch.device("cpu"),
+    save_mesh_path: Optional[str] = None,
 ) -> Tuple[torch.Tensor, np.ndarray, TSDFVolume]:
-    """Fuse the dataset's depth stream into a TSDF volume on ``device``.
+    """Fuse the dataset's depth stream into a TSDF volume on ``device``;
+    with ``save_mesh_path``, also write the volume's mesh there.
 
     Returns:
         (tsdf (X, Y, Z) tensor, adjusted bounds (3, 2), volume object).
@@ -45,4 +58,62 @@ def build_tsdf_volume(
         c2w[:3, 2] *= -1.0
         color255 = (np.asarray(gt_color) * 255).astype(np.float32)
         vol.integrate(color255, np.asarray(gt_depth, np.float32), K, c2w)
+    if save_mesh_path:
+        verts, faces, normals, colors = vol.get_mesh()
+        write_ply(save_mesh_path, verts, faces, colors=colors, normals=normals)
     return vol.device_volume(), vol.vol_bnds.astype(np.float32), vol
+
+
+def save_tsdf_volume(
+    cfg: Dict[str, Any],
+    args=None,
+    space: int = 10,
+    out_dir: Optional[str] = None,
+    device: torch.device = torch.device("cpu"),
+) -> str:
+    """Build and save ``<out_dir>/<prefix>_tsdf_volume.npz`` (the JAX
+    package's layout, ref: get_tsdf.py:101-138) and its mesh; returns the
+    ``.npz`` path."""
+    dataset = cfg["data"]["dataset"]
+    scene_id = cfg["data"]["id"]
+    out_dir = out_dir or f"{dataset}_tsdf_volume"
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = f"scene{scene_id}" if dataset == "scannet" else f"{scene_id}"
+    voxel_size = float(cfg.get("tsdf", {}).get("voxel_size", 4.0 / 256))
+    tsdf, bounds, vol = build_tsdf_volume(
+        cfg, args, space=space, voxel_size=voxel_size, device=device,
+        save_mesh_path=os.path.join(out_dir, f"{prefix}_mesh.ply"),
+    )
+    out = os.path.join(out_dir, f"{prefix}_tsdf_volume.npz")
+    np.savez_compressed(
+        out,
+        tsdf=tsdf.cpu().numpy(),
+        bounds=bounds,
+        voxel_size=np.float32(voxel_size),
+        space=np.int32(space),
+        observed=vol.observed_mask(),
+    )
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> str:
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.utils.device import resolve_device
+
+    parser = argparse.ArgumentParser(description="Build the TSDF prior volume of a scene (PyTorch/CUDA port).")
+    parser.add_argument("config", type=str, help="path to the scene config")
+    parser.add_argument("--output", type=str, default=None,
+                        help="directory for the volume and mesh (default: <dataset>_tsdf_volume)")
+    parser.add_argument("--space", type=int, default=None,
+                        help="fuse every space-th frame (default: the config's tsdf.space, else 10)")
+    parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
+    args = parser.parse_args(argv)
+    cfg = load_config(args.config, default_config_path())
+    space = args.space if args.space is not None else int(cfg.get("tsdf", {}).get("space", 10))
+    out = save_tsdf_volume(cfg, None, space=space, out_dir=args.output, device=resolve_device(args.device))
+    print(f"Saved TSDF volume to {out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

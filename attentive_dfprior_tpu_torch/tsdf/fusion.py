@@ -11,8 +11,9 @@ frame). Semantics:
     dist = min(1, depth_diff / trunc) (ref: fusion.py:115-128);
   - color as a per-channel running average (3 channels, no packing).
 
-Meshing the volume (``get_mesh``, ``get_point_cloud``) needs the port of
-marching cubes and is still to port (ROADMAP.md).
+``fill_unobserved_volume`` and ``legacy_observed_mask`` are numpy copies of
+the JAX package's (the observedness fills of the meshing and training
+priors).
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from attentive_dfprior_tpu_torch.utils.marching_cubes import _vertex_normals, marching_cubes
+from attentive_dfprior_tpu_torch.utils.mesh import reindex_mesh
 
 
 @torch.no_grad()
@@ -95,7 +99,7 @@ def integrate_frame(
 
 class TSDFVolume:
     """TSDF fusion volume kept on the device between frames
-    (API of ref: fusion.py:21-341, without meshing)."""
+    (API of ref: fusion.py:21-341)."""
 
     def __init__(self, vol_bnds: np.ndarray, voxel_size: float, device: torch.device):
         vol_bnds = np.asarray(vol_bnds, dtype=np.float64)
@@ -148,3 +152,102 @@ class TSDFVolume:
     def observed_mask(self) -> np.ndarray:
         """(X, Y, Z) bool: voxels touched by at least one depth frame."""
         return (self._weight > 0).cpu().numpy()
+
+    def get_mesh(self, use_native: bool = True):
+        """Marching-cubes surface of the fused TSDF (level 0), world coords
+        (ref: fusion.py:324-341). Faces touching unobserved voxels (fusion
+        weight 0) are dropped: observed-free / unobserved boundaries are not
+        surfaces.
+
+        Returns:
+            verts (V, 3), faces (F, 3), normals (V, 3), colors (V, 3) uint8.
+        """
+        tsdf, color, _ = self.get_volume()
+        weight = self._weight.cpu().numpy()
+        verts, faces, _ = marching_cubes(tsdf, level=0.0, use_native=use_native)
+        if len(verts):
+            vidx = np.clip(np.round(verts).astype(int), 0, np.array(tsdf.shape) - 1)
+            observed = weight[vidx[:, 0], vidx[:, 1], vidx[:, 2]] > 0
+            faces = faces[observed[faces].all(axis=1)]
+            verts, faces = reindex_mesh(verts, faces)
+        normals = _vertex_normals(verts, faces)
+        if len(verts):
+            vidx = np.clip(np.round(verts).astype(int), 0, np.array(tsdf.shape) - 1)
+            colors = color[vidx[:, 0], vidx[:, 1], vidx[:, 2]].astype(np.uint8)
+        else:
+            colors = np.zeros((0, 3), np.uint8)
+        verts = verts * self._voxel_size + self._vol_origin
+        return verts, faces, normals, colors
+
+    def get_point_cloud(self, use_native: bool = True) -> np.ndarray:
+        """(N, 6) xyz + rgb surface point cloud (ref: fusion.py:303-322)."""
+        verts, _, _, colors = self.get_mesh(use_native)
+        return np.hstack([verts, colors.astype(np.float64)])
+
+
+def fill_unobserved_volume(
+    tsdf: np.ndarray, observed: np.ndarray, mode: str = "nearest"
+) -> np.ndarray:
+    """Fill never-observed voxels of a prior (ref: the JAX package's
+    tsdf/fusion.py:237-273).
+
+    The reference initializes unobserved voxels to -1, "occupied"
+    (ref: src/fusion.py:52). Training and tracking keep that volume: its
+    in-band transition at observation boundaries steadies pose
+    optimization. Meshing queries a filled copy, since trilinear
+    interpolation between a -1 unobserved voxel and an observed in-band
+    neighbour passes through the attentive blend's band and makes phantom
+    surfaces in unobserved air (the JAX package's measurements of both
+    effects are in its docstring).
+
+    Modes: "nearest" (the sign of the nearest observed voxel: no spurious
+    crossing on either side), "free" (+1), "reference" (no-op).
+    """
+    if mode == "reference":
+        return tsdf
+    if not observed.any() or observed.all():
+        return tsdf
+    if mode == "free":
+        return np.where(observed, tsdf, np.float32(1.0))
+    if mode != "nearest":
+        raise ValueError(f"unknown fill_unobserved mode {mode!r}")
+    from scipy import ndimage
+
+    ix = ndimage.distance_transform_edt(
+        ~observed, return_distances=False, return_indices=True
+    )
+    nearest_sign = np.where(tsdf[tuple(ix)] >= 0, 1.0, -1.0).astype(tsdf.dtype)
+    return np.where(observed, tsdf, nearest_sign)
+
+
+def legacy_observed_mask(tsdf: np.ndarray) -> np.ndarray:
+    """Recover an observed-voxel mask from a weightless legacy volume.
+
+    Caches written by our builder store the fusion-weight mask explicitly;
+    the reference's ``.pt`` volumes (and our pre-round-3 ``.npz`` caches)
+    save only the TSDF values, where -1.0 is both the untouched init
+    (ref: src/fusion.py:52) AND a legitimate running average for an observed
+    voxel sitting exactly at the truncation clamp. Plain ``tsdf != -1.0``
+    misclassifies the latter as unobserved, and ``fill_unobserved_volume``
+    would then flip it to +1, eroding genuinely occupied space.
+
+    Resolution: a voxel at exactly -1.0 is *ambiguous*; treat it as observed
+    when any 6-neighbor is an observed voxel strictly inside the interior
+    band (-1 < tsdf < 0) — the only place a clamped-at--1 running average
+    can physically occur is one truncation step behind the band. A single
+    dilation pass (not a flood fill: deep interior connected to the band is
+    genuinely the untouched init and must stay unobserved so
+    ``fill_unobserved_volume`` keeps it at the nearest observed sign).
+    """
+    observed = tsdf != -1.0
+    if observed.all() or not observed.any():
+        return observed
+    band = observed & (tsdf < 0)
+    adj = np.zeros_like(band)
+    adj[1:, :, :] |= band[:-1, :, :]
+    adj[:-1, :, :] |= band[1:, :, :]
+    adj[:, 1:, :] |= band[:, :-1, :]
+    adj[:, :-1, :] |= band[:, 1:, :]
+    adj[:, :, 1:] |= band[:, :, :-1]
+    adj[:, :, :-1] |= band[:, :, 1:]
+    return observed | (~observed & adj)

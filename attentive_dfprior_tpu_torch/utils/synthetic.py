@@ -5,9 +5,8 @@ box) rendered by sphere tracing, providing exact GT depth, color, poses, and
 mesh. Used by integration tests, the benchmark harness, and the demo config —
 the reference can only run on downloaded Replica/ScanNet data.
 
-A copy of the JAX package's ``utils/synthetic.py`` (numpy only) without
-``gt_mesh``, which needs the marching-cubes module that the port has not
-taken over yet.
+A copy of the JAX package's ``utils/synthetic.py`` (numpy only); its
+``gt_mesh`` runs the port's marching tetrahedra.
 """
 
 from __future__ import annotations
@@ -162,3 +161,21 @@ class SyntheticScene:
         color = self.color_at(p)
         depth = np.where(hit, t, 0.0).astype(np.float32)
         return color.astype(np.float32), depth
+
+    def gt_mesh(self, resolution: int = 96, use_native: bool = True):
+        """Marching-cubes GT mesh of the scene surface (for recon eval):
+        (verts, faces, normals) in world coordinates."""
+        from attentive_dfprior_tpu_torch.utils.marching_cubes import marching_cubes
+
+        h = self.room_half * 1.02
+        xs = np.linspace(-h[0], h[0], resolution)
+        ys = np.linspace(-h[1], h[1], resolution)
+        zs = np.linspace(-h[2], h[2], resolution)
+        X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+        pts = np.stack([X, Y, Z], axis=-1)
+        vol = self.sdf(pts.reshape(-1, 3)).reshape(resolution, resolution, resolution)
+        # surface at sdf == 0; inside objects sdf < 0
+        verts, faces, normals = marching_cubes(-vol, level=0.0, use_native=use_native)
+        spacing = np.array([xs[1] - xs[0], ys[1] - ys[0], zs[1] - zs[0]], dtype=np.float64)
+        verts = verts * spacing + np.array([xs[0], ys[0], zs[0]])
+        return verts, faces, normals

@@ -1,32 +1,47 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --phases 1,2 # build + kernel checks only
+    python3 chip_smoke.py               # phases 1-5 and 7, one card
+    python3 chip_smoke.py --phases 1,2  # build + kernel checks only
+    python3 chip_smoke.py --phases 1,8  # the room.yaml quality run
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
-     power limit, the TF32 flags (must be off), and the build of every
-     kernel from ``attentive_dfprior_tpu_torch/csrc`` with nvcc (sm_90a);
+     power limit, the TF32 flags (must be off), the build of every kernel
+     from ``attentive_dfprior_tpu_torch/csrc`` with nvcc (sm_90a) and of
+     the native host library (marching tetrahedra, rasterizer) with g++;
   2. every kernel against its plain PyTorch version on the card, at odd
-     shapes and at the main path's shapes, with CUDA-event timings;
-  3. the room0-shape SLAM cycle (the workload of bench.py): one mapped frame
-     of 25/12/23 stage iterations x 1000 rays x 48 samples over a window of
-     5 synthetic 680x1200 frames, a random 4/256 m prior of ~196 M voxels,
-     then 5 tracked frames of 10 iterations x 200 rays;
+     shapes and at the main path's shapes, with CUDA-event timings; K3
+     also against K1;
+  3. the room0-shape SLAM cycle (the workload of bench.py) under the
+     ``halo`` grid gradient (K1) and the ``pallas`` one (K3), timed in
+     turns: one mapped frame of 25/12/23 stage iterations x 1000 rays x 48
+     samples over a window of 5 synthetic 680x1200 frames, a random
+     4/256 m prior of ~196 M voxels, then 5 tracked frames of 10 iterations
+     x 200 rays. Both cycles are profiled at the very end of the run: the
+     profiler slows what runs after it in the process;
   4. the entry point ``attentive_dfprior_tpu_torch.run`` on
      configs/Synthetic/room_tracking.yaml with loop closure off, frames
-     0..10 (tracks 1-10, maps 0, 5 and 10): losses, translation error
-     against ground truth, checkpoint;
+     0..10 (tracks 1-10, maps 0, 5 and 10, writes the final meshes):
+     losses, translation error against ground truth, checkpoint;
   5. ``Renderer.render_img`` of the last mapped frame from the mapped scene
      (K2 on the path): depth L1 against the sensor depth;
-  6. (only with ``--phases ...,6``) determinism: frame 0's mapping run
-     twice with the default kernels and twice under
-     ``torch.use_deterministic_algorithms``, compared bit for bit.
+  6. (only on request) determinism: frame 0's mapping run twice with the
+     default kernels and twice under ``torch.use_deterministic_algorithms``,
+     compared bit for bit;
+  7. the Mesher: ``SLAMSystem.get_mesh`` on phase 4's map (K2 on the path),
+     its field-query and host seconds, and accuracy / completion / ratio
+     against the synthetic GT mesh culled to frames 0-10 (printed, no gate);
+  8. (only on request) the whole configs/Synthetic/room.yaml run (80
+     frames, GT poses) and its ``final_mesh_eval_rec.ply`` scored as
+     scripts/eval_synthetic_demo.py scores it, with the port's own tools;
+     gate: accuracy <= 2.2 cm, completion <= 2.0 cm, ratio >= 94 %.
 
-Launch counts are set to 0 just before phase 4 and read after phase 5; the
-``kernels`` JSON line reports them with each kernel's error, time, plain
-time and bound. The last line is the contract's ``{"ok": true, ...}``.
+Every path (each timed variant of phase 3, phases 4, 5, 7 and 8) runs with
+the launch counts set to 0 just before it and read just after; the
+``kernels`` JSON line reports each kernel's launches over those paths with
+its error, time, plain time and bound. The last line is the contract's
+``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -46,6 +61,8 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (NVIDIA data 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ROOM0_BOUND = [[-2.9, 8.94], [-3.2, 5.76], [-3.5, 3.54]]
 ROOM_TRACKING = os.path.join(REPO, "configs", "Synthetic", "room_tracking.yaml")
+ROOM = os.path.join(REPO, "configs", "Synthetic", "room.yaml")
+ROOM_GATE = {"accuracy_cm": 2.2, "completion_cm": 2.0, "completion_ratio_pct": 94.0}
 NO_LOOP_CLOSURE = ["--set", "loop_closure.enable=False", "--set", "loop_closure.final_refine=False"]
 
 
@@ -75,7 +92,7 @@ def time_ms(torch, fn, reps: int = 20, inner: int = 10, warmup: int = 3) -> floa
     return float(np.median(times))
 
 
-def phase_env(torch, build):
+def phase_env(torch, build, kernels):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -87,9 +104,6 @@ def phase_env(torch, build):
     print(f"tf32 matmul={tf32[0]} cudnn={tf32[1]}")
     if any(tf32):
         fail("TF32 is on")
-    from attentive_dfprior_tpu_torch.ops.cuda import decoder_kernel, halo_fold_kernel
-
-    kernels = [halo_fold_kernel.KERNEL, decoder_kernel.KERNEL]
     t0 = time.perf_counter()
     build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(kernels)} kernels (parallel nvcc)")
@@ -97,6 +111,11 @@ def phase_env(torch, build):
         k.lib()
         ptxas = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"build {k.name}: {k.build_s:.2f} s; " + " | ".join(ptxas))
+    from attentive_dfprior_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.lib()
+    print(f"build native host library (g++): {time.perf_counter() - t0:.2f} s -> {os.path.basename(native.lib_path())}")
     return card
 
 
@@ -104,6 +123,7 @@ def phase_kernels(torch, dev):
     from attentive_dfprior_tpu_torch.models.decoders import init_mlp_decoder
     from attentive_dfprior_tpu_torch.ops.cuda import decoder_kernel as K2
     from attentive_dfprior_tpu_torch.ops.cuda import halo_fold_kernel as K1
+    from attentive_dfprior_tpu_torch.ops.cuda import stencil_kernel as K3
     from attentive_dfprior_tpu_torch.utils.tree import tree_map
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -168,15 +188,53 @@ def phase_kernels(torch, dev):
                 k2[f"c{c_dim}o{out_dim}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
             print(line, flush=True)
     rec["K2"] = k2
+
+    # ---- K3: bit-identical to its plain version (the TPU kernel's order),
+    # within rtol 1e-5 of K1 (same terms, another order) ----
+    # odd shapes (nx > 8 and not a multiple of 8; nx, ny or nz = 1);
+    # room_tracking's low / high grids; room0's low / high grids. The
+    # pallas variant samples every grid on its own, so C is always 32.
+    k3 = {"max_abs_err": 0.0, "max_abs_err_vs_K1": 0.0}
+    shapes = [(11, 5, 7, 32), (1, 6, 5, 32), (9, 1, 4, 32), (10, 4, 1, 32), (14, 11, 14, 32),
+              (28, 22, 28, 32), (37, 28, 22, 32), (74, 56, 44, 32)]
+    for shape in shapes:
+        nx, ny, nz, C = shape
+        cells = torch.randn((nx * ny * nz, 8 * C), generator=g, device=dev)
+        out = K3.cell_stencil(cells, shape)
+        ref = K3.cell_stencil_plain(shape, cells)
+        fold = K1.cell_fold_halo(cells, shape)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        err_k1 = float((out - fold).abs().max())
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        k3["max_abs_err_vs_K1"] = max(k3["max_abs_err_vs_K1"], err_k1)
+        if not torch.equal(out, ref):
+            fail(f"K3 cell stencil differs from its plain version at {shape}: max abs err {err}")
+        if not torch.allclose(out, fold, rtol=1e-5, atol=1e-6):
+            fail(f"K3 cell stencil differs from K1 beyond rtol 1e-5 at {shape}: max abs err {err_k1}")
+        line = f"K3 {shape}: torch.equal ok; vs K1 allclose(rtol 1e-5, atol 1e-6) ok, max abs err {err_k1:.3e}"
+        if nx == 74:
+            ms = time_ms(torch, lambda: K3.cell_stencil_launch(cells, shape))
+            plain_ms = time_ms(torch, lambda: K3.cell_stencil_plain(shape, cells))
+            nbytes = nx * ny * nz * 9 * C * 4
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)"
+            k3["C32"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        print(line, flush=True)
+    rec["K3"] = k3
     return rec
 
 
-def phase_room0(torch, dev):
+def phase_room0(torch, dev, kernels):
+    """The room0-shape cycle under the ``halo`` (K1) and ``pallas`` (K3)
+    grid gradients, each from its own copy of one initial scene and its own
+    copy of one pixel-draw stream, timed in turns. Returns ({variant:
+    result}, {variant: cycle}); each result's ``launches`` are the kernels'
+    launches over its timed cycles. The profiles (``profile_cycles``) run
+    last in the script: the profiler slows what runs after it."""
     from attentive_dfprior_tpu_torch.camera import Camera
     from attentive_dfprior_tpu_torch.models.scene import SceneConfig, init_scene
     from attentive_dfprior_tpu_torch.ops.adam import adam_init
-    from attentive_dfprior_tpu_torch.ops.cuda import decoder_kernel as K2
-    from attentive_dfprior_tpu_torch.ops.cuda import halo_fold_kernel as K1
     from attentive_dfprior_tpu_torch.render.renderer import RenderConfig
     from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, mapping_stage
     from attentive_dfprior_tpu_torch.slam.tracker import track_frame
@@ -185,8 +243,6 @@ def phase_room0(torch, dev):
     bound = np.array(ROOM0_BOUND)
     scfg = SceneConfig(bound=bound, c_dim=32, low_grid_len=0.32, high_grid_len=0.16,
                        color_grid_len=0.16, fix_high=False, fix_color=False)
-    params = init_scene(torch.Generator().manual_seed(0), scfg, device=dev)
-    print(f"room0 grids: low {tuple(params['grid_low'].shape)}, high {tuple(params['grid_high'].shape)}")
     g = torch.Generator(device=dev).manual_seed(1)
     voxel = 4.0 / 256
     dims = tuple(int(np.ceil((bound[i, 1] - bound[i, 0]) / voxel)) for i in range(3))
@@ -204,55 +260,91 @@ def phase_room0(torch, dev):
     lrs = StageLRs(decoders=5e-3, mlp=5e-3, low=5e-3, high=5e-3, color=5e-3)
     iters = {"low": 25, "high": 12, "color": 23}
     cam_t = torch.tensor([1.0, 0.0, 0.0, 0.0, 2.0, 1.0, 0.0], device=dev)
-    for t in tree_leaves(params):
-        t.requires_grad_(True)
-
-    def cycle():
-        """One mapped frame, then 5 tracked frames: (losses, map s, track s)."""
-        astate = adam_init(params)
-        losses = []
-        t0 = time.perf_counter()
-        for stage, n in iters.items():
-            losses.append(mapping_stage(
-                params, astate, colors, depths, c2ws, None, tsdf, tb, tb, n, [0.0] * n,
-                lrs, stage, 1000 // F, cam, rcfg, (False, False), 0.2, generator=g,
-            ))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(5):
-            _, tl, _, _ = track_frame(
-                params, cam_t, colors[0], depths[0], tsdf, tb, tb, cam, rcfg, 200, 10,
-                100, 100, True, True, 0.5, 1e-3, generator=g,
-            )
-            losses.append(tl)
-        torch.cuda.synchronize()
-        return torch.cat(losses), t1 - t0, time.perf_counter() - t1
-
-    cycle()  # warm-up: allocator, cuBLAS handles, kernel loads
-    K1.KERNEL.launches = K2.KERNEL.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    reps, splits = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        losses, map_s, track_s = cycle()
-        reps.append(time.perf_counter() - t0)
-        splits.append((map_s, track_s))
-    if not torch.isfinite(losses).all():
-        fail("room0 cycle: non-finite loss")
     rays = 1000 * sum(iters.values()) + 5 * 200 * 10
-    cycle_s = float(np.median(reps))
-    out = dict(cycle_s=cycle_s, rep_s=reps, map_track_s=splits, rays_per_cycle=rays,
-               rays_per_s=rays / cycle_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-               k1_launches_per_cycle=K1.KERNEL.launches // len(reps),
-               k2_launches_per_cycle=K2.KERNEL.launches // len(reps))
-    print(f"room0 cycle: {json.dumps(out)}", flush=True)
-    if out["k1_launches_per_cycle"] <= 0:
-        fail("room0 cycle launched no K1")
-    profile_cycle(torch, cycle, cycle_s)
-    return out
+    own = {"halo": "halo_fold", "pallas": "cell_stencil"}
+
+    def make_cycle(grid_vjp):
+        params = init_scene(torch.Generator().manual_seed(0), scfg, device=dev)
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        draws = torch.Generator(device=dev).manual_seed(2)
+
+        def cycle():
+            """One mapped frame, then 5 tracked frames: (losses, map s, track s)."""
+            astate = adam_init(params)
+            losses = []
+            t0 = time.perf_counter()
+            for stage, n in iters.items():
+                losses.append(mapping_stage(
+                    params, astate, colors, depths, c2ws, None, tsdf, tb, tb, n, [0.0] * n,
+                    lrs, stage, 1000 // F, cam, rcfg, (False, False), 0.2, generator=draws, grid_vjp=grid_vjp,
+                ))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(5):
+                _, tl, _, _ = track_frame(
+                    params, cam_t, colors[0], depths[0], tsdf, tb, tb, cam, rcfg, 200, 10,
+                    100, 100, True, True, 0.5, 1e-3, generator=draws, grid_vjp=grid_vjp,
+                )
+                losses.append(tl)
+            torch.cuda.synchronize()
+            return torch.cat(losses), t1 - t0, time.perf_counter() - t1
+
+        return params, cycle
+
+    variants = ("halo", "pallas")
+    cycles = {}
+    for v in variants:
+        params, cycles[v] = make_cycle(v)
+    print(f"room0 grids: low {tuple(params['grid_low'].shape)}, high {tuple(params['grid_high'].shape)}")
+    for v in variants:
+        cycles[v]()  # warm-up: allocator, cuBLAS handles, kernel loads
+    reps = {v: [] for v in variants}
+    splits = {v: [] for v in variants}
+    launches = {v: {k.name: 0 for k in kernels} for v in variants}
+    peak = {v: 0.0 for v in variants}
+    # in turns (halo, pallas, pallas, halo, twice): both variants meet the
+    # same host drift; every count is read over its own cycle
+    for v in ("halo", "pallas", "pallas", "halo") * 2:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, map_s, track_s = cycles[v]()
+        reps[v].append(time.perf_counter() - t0)
+        splits[v].append((map_s, track_s))
+        peak[v] = max(peak[v], torch.cuda.max_memory_allocated() / 2**30)
+        for k in kernels:
+            launches[v][k.name] += k.launches
+        if not torch.isfinite(losses).all():
+            fail(f"room0 cycle ({v}): non-finite loss")
+    results = {}
+    for v in variants:
+        cycle_s = float(np.median(reps[v]))
+        out = dict(grid_vjp=v, cycle_s=cycle_s, rep_s=reps[v], map_track_s=splits[v], rays_per_cycle=rays,
+                   rays_per_s=rays / cycle_s, peak_mem_gb=peak[v],
+                   launches_per_cycle={n: c // len(reps[v]) for n, c in launches[v].items()})
+        print(f"room0 cycle ({v}): {json.dumps(out)}", flush=True)
+        other = own["pallas" if v == "halo" else "halo"]
+        if launches[v][own[v]] <= 0 or launches[v][other] != 0:
+            fail(f"room0 cycle ({v}) launched {own[v]} {launches[v][own[v]]} times and "
+                 f"{other} {launches[v][other]} times (expected > 0 and 0)")
+        results[v] = dict(out, launches=launches[v])
+    return results, cycles
 
 
-def profile_cycle(torch, cycle, cycle_s: float) -> None:
+def profile_cycles(torch, cycles, results) -> None:
+    """One profiled cycle per variant, then one halo cycle timed again: how
+    much the profiler slows what runs after it."""
+    for v, cycle in cycles.items():
+        profile_cycle(torch, cycle, results[v]["cycle_s"], v)
+    t0 = time.perf_counter()
+    cycles["halo"]()
+    print(f"room0 cycle (halo) again after the profiles: {time.perf_counter() - t0:.4f} s "
+          f"(before them: {results['halo']['cycle_s']:.4f} s)")
+
+
+def profile_cycle(torch, cycle, cycle_s: float, label: str) -> None:
     """One more cycle under torch.profiler: the device's busy share of the
     unprofiled cycle time, the number of device kernels, and the kernels
     that take the most device time."""
@@ -264,10 +356,10 @@ def profile_cycle(torch, cycle, cycle_s: float) -> None:
     dev = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
     busy_s = sum(a.self_device_time_total for a in dev) / 1e6
     if busy_s <= 0:
-        print("room0 profile: the profiler recorded no device time (not measured)")
+        print(f"room0 profile ({label}): the profiler recorded no device time (not measured)")
         return
     n_kernels = sum(a.count for a in dev)
-    print(f"room0 profile: device busy {busy_s:.4f} s of the {cycle_s:.4f} s cycle "
+    print(f"room0 profile ({label}): device busy {busy_s:.4f} s of the {cycle_s:.4f} s cycle "
           f"({100 * busy_s / cycle_s:.1f} %), {n_kernels} device kernels per cycle")
     for a in sorted(dev, key=lambda a: -a.self_device_time_total)[:12]:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms  {a.count:6d} x  {a.key[:90]}")
@@ -297,6 +389,9 @@ def phase_entry(torch, dev):
     gt = slam.gt_c2w_list[:11]
     err = np.linalg.norm(est[:11, :3, 3] - gt[:, :3, 3], axis=1)
     ate = float(np.sqrt(np.mean(err**2)))
+    parts = {k: round(v, 3) for k, v in slam.timings.items()}
+    print(f"entry point seconds by part: {json.dumps(parts)}; the rest is set-up (dataset frames rendered "
+          f"on the host, prior fusion)")
     print(f"entry point: {wall:.1f} s for 11 frames; translation error per frame (cm): "
           + " ".join(f"{100 * e:.2f}" for e in err) + f"; ATE RMSE {100 * ate:.3f} cm (unaligned)")
     if ate > 0.10:
@@ -324,6 +419,66 @@ def phase_render(torch, dev, slam):
         fail("render: non-finite output")
     print(f"render frame 10 ({tuple(d.shape)}, fused={slam.renderer.use_fused}): {dt:.3f} s, "
           f"depth L1 {100 * l1:.3f} cm, color L1 {cl1:.4f}")
+
+
+def score_mesh(cfg, cam, verts, faces, gt_poses):
+    """acc / comp / ratio of a mesh against the synthetic scene's GT mesh
+    culled to ``gt_poses``, as scripts/eval_synthetic_demo.py scores it
+    (GT lattice 192, 200k surface samples, ICP), with the port's tools."""
+    from attentive_dfprior_tpu_torch.tools.cull_mesh import cull_mesh
+    from attentive_dfprior_tpu_torch.tools.eval_recon import calc_3d_metric
+    from attentive_dfprior_tpu_torch.utils.synthetic import SyntheticScene
+
+    gt_v, gt_f, _ = SyntheticScene.from_config(cfg).gt_mesh(resolution=192)
+    gt_cv, gt_cf = cull_mesh(gt_v, gt_f, gt_poses, H=cam.H, W=cam.W, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
+    return calc_3d_metric(verts, faces, gt_cv, gt_cf, n_samples=200_000)
+
+
+def phase_mesh(torch, dev, slam):
+    """SLAMSystem.get_mesh on phase 4's map with every frame's pose in the
+    visibility mask (the eval_rec mesh), scored against the GT culled to
+    frames 0-10."""
+    path = os.path.join(slam.output, "mesh", "chip_smoke_mesh.ply")
+    t0 = time.perf_counter()
+    out = slam.get_mesh(path, idx=10, get_mask_use_all_frames=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if out is None or len(out[1]) == 0:
+        fail("mesh: no surface extracted")
+    verts, faces = out
+    if not np.isfinite(verts).all():
+        fail("mesh: non-finite vertices")
+    m = slam.mesher
+    t = m.last_timings
+    print(f"mesh: lattice {m.resolution}^3, marching tetrahedra {'native' if m.use_native else 'numpy'}, "
+          f"decoder MLPs through K2 {m.use_fused}: {len(verts)} vertices, {len(faces)} faces; "
+          f"field query {t['field_s']:.3f} s, host steps {t['host_s']:.3f} s ({wall:.3f} s in all)")
+    metrics = score_mesh(slam.cfg, slam.cam, verts, faces, slam.gt_c2w_list[:11])
+    print(f"mesh vs GT culled to frames 0-10: {json.dumps(metrics)} (printed, no gate at 11 frames)")
+
+
+def phase_room_yaml(torch, dev):
+    """configs/Synthetic/room.yaml end to end through the entry point, then
+    its final_mesh_eval_rec.ply scored; fails outside ROOM_GATE."""
+    from attentive_dfprior_tpu_torch import run as run_mod
+    from attentive_dfprior_tpu_torch.utils.ply import read_ply
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_room_")
+    os.chdir(REPO)
+    t0 = time.perf_counter()
+    slam = run_mod.main([ROOM, "--output", out_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timings = {k: round(v, 3) for k, v in slam.timings.items()}
+    print(f"room.yaml: {wall:.1f} s for {slam.last_idx + 1} frames (seconds by part: {json.dumps(timings)})")
+    rec_v, rec_f, _ = read_ply(os.path.join(out_dir, "mesh", "final_mesh_eval_rec.ply"))
+    metrics = score_mesh(slam.cfg, slam.cam, rec_v, rec_f, slam.gt_c2w_list)
+    print(f"room.yaml final_mesh_eval_rec.ply ({len(rec_v)} vertices, {len(rec_f)} faces) vs GT: "
+          f"{json.dumps(metrics)}; gate {json.dumps(ROOM_GATE)}")
+    bad = [k for k, lim in ROOM_GATE.items()
+           if (metrics[k] < lim if k == "completion_ratio_pct" else metrics[k] > lim)]
+    if bad:
+        fail(f"room.yaml mesh misses the gate on {bad}: {metrics}")
 
 
 def phase_determinism(torch, dev):
@@ -398,10 +553,12 @@ def phase_determinism(torch, dev):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
-                    help="comma-separated phases to run (6, the determinism check, only on request)")
+    ap.add_argument("--phases", default="1,2,3,4,5,7",
+                    help="comma-separated phases to run (6 and 8 only on request)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
+    if 7 in phases and 4 not in phases:
+        fail("phase 7 meshes phase 4's map: run it with phase 4")
     if 6 in phases:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # deterministic cuBLAS
 
@@ -411,43 +568,83 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     sys.path.insert(0, REPO)
     from attentive_dfprior_tpu_torch.ops.cuda import build
-    from attentive_dfprior_tpu_torch.ops.cuda import decoder_kernel as K2
-    from attentive_dfprior_tpu_torch.ops.cuda import halo_fold_kernel as K1
 
     dev = torch.device("cuda", 0)
+    kernels = build.port_kernels()
+    paths = {}  # path -> {kernel: launches}, each counted from 0
+
+    def drive(name, fn, *args):
+        for k in kernels:
+            k.launches = 0
+        out = fn(*args)
+        paths[name] = {k.name: k.launches for k in kernels}
+        return out
+
     t_start = time.perf_counter()
-    card = phase_env(torch, build)
-    kern = phase_kernels(torch, dev) if 2 in phases else None
+    t_phase = [t_start]
+
+    def done(phase: int) -> None:
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_phase[0]:.1f} s", flush=True)
+        t_phase[0] = now
+
+    card = phase_env(torch, build, kernels)
+    done(1)
+    kern = None
+    if 2 in phases:
+        kern = phase_kernels(torch, dev)
+        done(2)
     if 3 in phases:
-        phase_room0(torch, dev)
+        room0, room0_cycles = phase_room0(torch, dev, kernels)
+        for variant, res in room0.items():
+            paths[f"room0_cycle_{variant}"] = res["launches"]
+        done(3)
     if 4 in phases:
-        K1.KERNEL.launches = K2.KERNEL.launches = 0  # the main path starts here
-        slam = phase_entry(torch, dev)
+        slam = drive("entry", phase_entry, torch, dev)
+        if paths["entry"]["halo_fold"] <= 0:
+            fail("the entry point launched no K1 (halo fold)")
+        done(4)
         if 5 in phases:
-            phase_render(torch, dev, slam)
-        launches = {"halo_fold": K1.KERNEL.launches, "decoder_mlp": K2.KERNEL.launches}
-        print(f"main path launches: {json.dumps(launches)}")
-        if launches["halo_fold"] <= 0:
-            fail("the main path launched no K1 (halo fold)")
-        if 5 in phases and launches["decoder_mlp"] <= 0:
-            fail("the main path launched no K2 (decoder MLP)")
-    else:
-        launches = {"halo_fold": 0, "decoder_mlp": 0}
+            drive("render", phase_render, torch, dev, slam)
+            if paths["render"]["decoder_mlp"] <= 0:
+                fail("the render launched no K2 (decoder MLP)")
+            done(5)
+        if 7 in phases:
+            drive("mesh", phase_mesh, torch, dev, slam)
+            if paths["mesh"]["decoder_mlp"] <= 0:
+                fail("the Mesher launched no K2 (decoder MLP)")
+            done(7)
     if 6 in phases:
         phase_determinism(torch, dev)
+        done(6)
+    if 8 in phases:
+        drive("room_yaml", phase_room_yaml, torch, dev)
+        done(8)
+    if 3 in phases:
+        profile_cycles(torch, room0_cycles, room0)
+        print(f"phase 3 profiles: {time.perf_counter() - t_phase[0]:.1f} s")
+    print(f"launches by path: {json.dumps(paths)}")
     if kern is not None:
-        k1, k2 = kern["K1"], kern["K2"]
+        def launches(name):
+            return sum(p[name] for p in paths.values())
+
+        k1, k2, k3 = kern["K1"], kern["K2"], kern["K3"]
         line = {"kernels": [
             {"name": "halo_fold", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/halo_fold.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/halo_fold_kernel.py:87",
-             "launches": launches["halo_fold"], "max_abs_err": k1["max_abs_err"],
+             "launches": launches("halo_fold"), "max_abs_err": k1["max_abs_err"],
              "ms": k1["C32"]["ms"], "plain_ms": k1["C32"]["plain_ms"], "bound_ms": k1["C32"]["bound_ms"],
              "bound_by": "bytes", "library_ms": None},
             {"name": "decoder_mlp", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/decoder_mlp.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/decoder_kernel.py:115",
-             "launches": launches["decoder_mlp"], "max_abs_err": k2["max_abs_err"],
+             "launches": launches("decoder_mlp"), "max_abs_err": k2["max_abs_err"],
              "ms": k2["c32o1"]["ms"], "plain_ms": k2["c32o1"]["plain_ms"], "bound_ms": k2["c32o1"]["bound_ms"],
              "bound_by": k2["c32o1"]["bound_by"], "library_ms": None},
+            {"name": "cell_stencil", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/cell_stencil.cu",
+             "replaces": "attentive_dfprior_tpu/ops/pallas/stencil_kernel.py:87",
+             "launches": launches("cell_stencil"), "max_abs_err": k3["max_abs_err"],
+             "ms": k3["C32"]["ms"], "plain_ms": k3["C32"]["plain_ms"], "bound_ms": k3["C32"]["bound_ms"],
+             "bound_by": "bytes", "library_ms": None},
         ]}
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")
