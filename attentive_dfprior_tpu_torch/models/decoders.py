@@ -181,15 +181,13 @@ def sample_tsdf(tsdf_volume: torch.Tensor, p: torch.Tensor, tsdf_bnds: torch.Ten
 
 def _decoder_eval(dec_params: Dict[str, Any], p: torch.Tensor, c: torch.Tensor, fused: bool) -> torch.Tensor:
     """One decoder MLP, plain or through K2 (forward only: use fused=True
-    only on no-gradient paths)."""
+    only on no-gradient paths). K2's weight image is built once per
+    parameter version."""
     if not fused:
         return mlp_decoder_forward(dec_params, p, c)
-    from attentive_dfprior_tpu_torch.ops.cuda.decoder_kernel import (
-        fused_mlp_forward,
-        pack_mlp_params,
-    )
+    from attentive_dfprior_tpu_torch.ops.cuda.decoder_kernel import fused_decoder_forward
 
-    out = fused_mlp_forward(pack_mlp_params(dec_params), p, c)
+    out = fused_decoder_forward(dec_params, p, c)
     if out.shape[-1] == 1:
         out = out[..., 0]
     return out

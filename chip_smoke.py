@@ -18,20 +18,22 @@ Phases (each failure exits non-zero):
      turns: one mapped frame of 25/12/23 stage iterations x 1000 rays x 48
      samples over a window of 5 synthetic 680x1200 frames, a random
      4/256 m prior of ~196 M voxels, then 5 tracked frames of 10 iterations
-     x 200 rays. Both cycles are profiled at the very end of the run: the
+     x 200 rays. The halo cycle is profiled at the very end of the run: the
      profiler slows what runs after it in the process;
   4. the entry point ``attentive_dfprior_tpu_torch.run`` on
      configs/Synthetic/room_tracking.yaml with loop closure off, frames
      0..10 (tracks 1-10, maps 0, 5 and 10, writes the final meshes):
      losses, translation error against ground truth, checkpoint;
   5. ``Renderer.render_img`` of the last mapped frame from the mapped scene
-     (K2 on the path): depth L1 against the sensor depth;
+     (K2 on the path), then once more with the plain MLP: depth L1 against
+     the sensor depth for both, and the gap between the two renders;
   6. (only on request) determinism: frame 0's mapping run twice with the
      default kernels and twice under ``torch.use_deterministic_algorithms``,
      compared bit for bit;
   7. the Mesher: ``SLAMSystem.get_mesh`` on phase 4's map (K2 on the path),
-     its field-query and host seconds, and accuracy / completion / ratio
-     against the synthetic GT mesh culled to frames 0-10 (printed, no gate);
+     then once more with the plain MLP: field-query and host seconds, and
+     accuracy / completion / ratio against the synthetic GT mesh culled to
+     frames 0-10 (printed, no gate);
   8. (only on request) the whole configs/Synthetic/room.yaml run (80
      frames, GT poses) and its ``final_mesh_eval_rec.ply`` scored as
      scripts/eval_synthetic_demo.py scores it, with the port's own tools;
@@ -49,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -58,11 +61,13 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ROOM0_BOUND = [[-2.9, 8.94], [-3.2, 5.76], [-3.5, 3.54]]
 ROOM_TRACKING = os.path.join(REPO, "configs", "Synthetic", "room_tracking.yaml")
 ROOM = os.path.join(REPO, "configs", "Synthetic", "room.yaml")
 ROOM_GATE = {"accuracy_cm": 2.2, "completion_cm": 2.0, "completion_ratio_pct": 94.0}
+RENDER_GAP_M = 1e-6  # K2 vs plain MLP render, mean depth gap: ~25x what an H100 reads (3.2e-8, 4.1e-8 m)
 NO_LOOP_CLOSURE = ["--set", "loop_closure.enable=False", "--set", "loop_closure.final_refine=False"]
 
 
@@ -109,7 +114,13 @@ def phase_env(torch, build, kernels):
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(kernels)} kernels (parallel nvcc)")
     for k in kernels:
         k.lib()
-        ptxas = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
+        ptxas = []  # per entry function: its (mangled) name, then ptxas's lines on it
+        for ln in k.build_log.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", ln)
+            if entry:
+                ptxas.append(entry.group(1))
+            elif "registers" in ln or "spill" in ln or "wgmma" in ln or "arning" in ln:
+                ptxas.append(ln.strip())
         print(f"build {k.name}: {k.build_s:.2f} s; " + " | ".join(ptxas))
     from attentive_dfprior_tpu_torch import native
 
@@ -157,35 +168,76 @@ def phase_kernels(torch, dev):
     rec["K1"] = k1
 
     # ---- K2: within rtol 1e-4 / atol 1e-5 of the plain MLP ----
-    # N = 2^17 + 37 ends in a partial 128-point tile
+    # N = 1, 63, 65 and 2^17 + 37 end in a partial 64-point tile; 2^17 is the
+    # Mesher's chunk, 480,000 the render's batch (both timed). Bounds: the
+    # MLP's fp32 FLOPs x 3 (three TF32 products each) at the TF32 tensor-core
+    # peak, and the FLOPs at the fp32 FMA peak (the ceiling of any kernel
+    # without tensor cores); bytes (inputs and output once) bound neither.
     k2 = {"max_abs_err": 0.0}
+    # K2's own arithmetic, bit for bit, on every float it may meet: its
+    # branch-free sinf against sinf (|a| < 105615; above, the kernel calls
+    # sinf), its integer TF32 rounding against cvt.rna.tf32 (finite floats);
+    # and a control that the check sees differences: above 105615 the
+    # branch-free sinf is wrong
+    t0 = time.perf_counter()
+    sin_bad = sum(K2.self_check(dev, 0, sign, K2.SIN_FAST_BITS) for sign in (0, 0x80000000))
+    tf32_bad = sum(K2.self_check(dev, 1, sign, K2.FINITE_BITS) for sign in (0, 0x80000000))
+    control = K2.self_check(dev, 0, K2.SIN_FAST_BITS, 0x4B000000 - K2.SIN_FAST_BITS)
+    print(f"K2 arithmetic vs CUDA's, bit for bit: branch-free sinf on all {2 * K2.SIN_FAST_BITS} floats "
+          f"with |a| < 105615: {sin_bad} differ; integer TF32 rounding on all {2 * K2.FINITE_BITS} finite "
+          f"floats: {tf32_bad} differ; control (branch-free sinf on 105615 <= a < 2^23): {control} differ "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if sin_bad or tf32_bad or not control:
+        fail("K2's own sinf or TF32 rounding differs from CUDA's, or the check saw nothing")
+    smem = {c_dim: K2.smem_bytes(c_dim) for c_dim in (32, 64)}
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", "not reported")
+    print(f"K2 dynamic shared memory per CTA: c=32 {smem[32]} B, c=64 {smem[64]} B (opt-in limit {limit} B)")
+    # through the main path's wrapper (fused_decoder_forward: the image from
+    # TC_CACHE); at N = 65 also through fused_mlp_forward, which must match
+    # it bit for bit; and once with half the points scaled by 1e3, where the
+    # embedding's arguments pass 105615 and the kernel takes sinf
     for c_dim, color in [(32, False), (64, False), (32, True)]:
         params = init_mlp_decoder(torch.Generator().manual_seed(c_dim + color), c_dim=c_dim, color=color)
         params = tree_map(lambda t: t.to(dev), params)
         packed = K2.pack_mlp_params(params)
-        w = K2.flat_weights(packed)  # packed once, outside the timed calls
         out_dim = 4 if color else 1
-        for n in (2**17, 2**17 + 37, 480_000):
+        for n, far in [(1, False), (63, False), (65, False), (2**17, False), (2**17 + 37, False),
+                       (480_000, False), (4097, True)]:
             p = torch.randn((n, 3), generator=g, device=dev)
+            if far:
+                p[: n // 2] *= 1e3
             c = torch.randn((n, c_dim), generator=g, device=dev)
-            out = K2.fused_mlp_forward(packed, p, c)
+            out = K2.fused_decoder_forward(params, p, c)
             ref = K2.fused_mlp_plain(packed, p, c)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             k2["max_abs_err"] = max(k2["max_abs_err"], err)
+            where = f"N={n}{' (half of p x 1e3: sinf)' if far else ''} c={c_dim} out={out_dim}"
             if not torch.allclose(out, ref, rtol=1e-4, atol=1e-5):
-                fail(f"K2 decoder MLP differs from the plain MLP at N={n}, c={c_dim}, out={out_dim}: max abs err {err}")
-            line = f"K2 N={n} c={c_dim} out={out_dim}: allclose(rtol 1e-4, atol 1e-5) ok, max abs err {err:.3e}"
-            if n == 480_000:
+                fail(f"K2 decoder MLP differs from the plain MLP at {where}: max abs err {err}")
+            line = f"K2 {where}: allclose(rtol 1e-4, atol 1e-5) ok, max abs err {err:.3e}"
+            if far:
+                big = float(((p[: n // 2] @ params["B"]).abs() >= 105615).float().mean())
+                line += f"; {100 * big:.2f} % of the scaled points' arguments >= 105615"
+            if n == 65:
+                if not torch.equal(K2.fused_mlp_forward(packed, p, c), out):
+                    fail(f"K2 through fused_mlp_forward differs from fused_decoder_forward at {where}")
+                line += "; fused_mlp_forward torch.equal ok"
+            if n in (2**17, 480_000):
+                w = K2.TC_CACHE.get(params)  # the main path's cached image, outside the timed calls
                 ms = time_ms(torch, lambda: K2.fused_mlp_launch(w, p, c, out_dim))
                 plain_ms = time_ms(torch, lambda: K2.fused_mlp_plain(packed, p, c))
+                if K2.TC_CACHE.get(params) is not w:
+                    fail(f"K2's weight image was rebuilt for unchanged weights at {where}")
                 flops = n * 2 * (3 * 93 + 93 * 32 + 3 * 32 * 32 + 125 * 32 + 5 * c_dim * 32 + 32 * out_dim)
-                nbytes = n * 4 * (3 + c_dim + out_dim) + 4 * sum(t.numel() for t in packed)
-                bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-                by = "operations" if flops / PEAK_FP32_FLOPS > nbytes / PEAK_BYTES else "bytes"
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({flops / 1e9:.2f} GFLOP, by {by}); {flops / ms / 1e9:.2f} TFLOP/s")
-                k2[f"c{c_dim}o{out_dim}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+                nbytes = n * 4 * (3 + c_dim + out_dim) + 4 * w.numel()
+                tc_ms = max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+                fma_ms = flops / PEAK_FP32_FLOPS * 1e3
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s; "
+                         f"bound {tc_ms:.4f} ms (3xTF32 tensor cores, {100 * tc_ms / ms:.1f} % of it), "
+                         f"fp32-FMA ceiling {fma_ms:.4f} ms ({100 * fma_ms / ms:.1f} %); "
+                         f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+                k2[f"c{c_dim}o{out_dim}n{n}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=tc_ms)
             print(line, flush=True)
     rec["K2"] = k2
 
@@ -230,7 +282,7 @@ def phase_room0(torch, dev, kernels):
     grid gradients, each from its own copy of one initial scene and its own
     copy of one pixel-draw stream, timed in turns. Returns ({variant:
     result}, {variant: cycle}); each result's ``launches`` are the kernels'
-    launches over its timed cycles. The profiles (``profile_cycles``) run
+    launches over its timed cycles. The profile (``profile_cycles``) runs
     last in the script: the profiler slows what runs after it."""
     from attentive_dfprior_tpu_torch.camera import Camera
     from attentive_dfprior_tpu_torch.models.scene import SceneConfig, init_scene
@@ -334,14 +386,15 @@ def phase_room0(torch, dev, kernels):
 
 
 def profile_cycles(torch, cycles, results) -> None:
-    """One profiled cycle per variant, then one halo cycle timed again: how
-    much the profiler slows what runs after it."""
-    for v, cycle in cycles.items():
-        profile_cycle(torch, cycle, results[v]["cycle_s"], v)
+    """One profiled halo cycle (about two minutes; the pallas cycle's device
+    time has matched halo's within 1 % in every run that profiled both),
+    then one halo cycle timed again: how much the profiler slows what runs
+    after it."""
+    profile_cycle(torch, cycles["halo"], results["halo"]["cycle_s"], "halo")
     t0 = time.perf_counter()
     cycles["halo"]()
-    print(f"room0 cycle (halo) again after the profiles: {time.perf_counter() - t0:.4f} s "
-          f"(before them: {results['halo']['cycle_s']:.4f} s)")
+    print(f"room0 cycle (halo) again after the profile: {time.perf_counter() - t0:.4f} s "
+          f"(before it: {results['halo']['cycle_s']:.4f} s)")
 
 
 def profile_cycle(torch, cycle, cycle_s: float, label: str) -> None:
@@ -404,57 +457,80 @@ def phase_entry(torch, dev):
 
 
 def phase_render(torch, dev, slam):
+    """Frame 10 rendered through K2, then once more with the plain MLP on the
+    same map and pose. The map moves between runs (ROADMAP F2), so the depth
+    L1 of one run says little about K2; the gap between the two renders is
+    K2's own. Fails if it shifts the mean depth by more than RENDER_GAP_M."""
     _, color, depth, _ = slam.dataset[10]
-    t0 = time.perf_counter()
-    d, _, c = slam.renderer.render_img(
-        slam.params, slam.estimate_c2w_list[10], slam.tsdf_volume, gt_depth=depth
-    )
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     gt_d = torch.as_tensor(depth, device=dev)
     valid = gt_d > 0
-    l1 = float((d - gt_d).abs()[valid].mean())
-    cl1 = float((c - torch.as_tensor(color, device=dev)).abs().mean())
-    if not (torch.isfinite(d).all() and torch.isfinite(c).all()):
-        fail("render: non-finite output")
-    print(f"render frame 10 ({tuple(d.shape)}, fused={slam.renderer.use_fused}): {dt:.3f} s, "
-          f"depth L1 {100 * l1:.3f} cm, color L1 {cl1:.4f}")
+    renderer = slam.renderer
+    runs = {}
+    for fused in (True, False):
+        renderer.use_fused = fused
+        t0 = time.perf_counter()
+        d, _, c = renderer.render_img(slam.params, slam.estimate_c2w_list[10], slam.tsdf_volume, gt_depth=depth)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not (torch.isfinite(d).all() and torch.isfinite(c).all()):
+            fail(f"render (fused={fused}): non-finite output")
+        l1 = float((d - gt_d).abs()[valid].mean())
+        cl1 = float((c - torch.as_tensor(color, device=dev)).abs().mean())
+        print(f"render frame 10 ({tuple(d.shape)}, {'K2' if fused else 'plain MLP'}): {dt:.3f} s, "
+              f"depth L1 {100 * l1:.3f} cm, color L1 {cl1:.4f}")
+        runs[fused] = d, c
+    renderer.use_fused = True
+    (d, c), (dp, cp) = runs[True], runs[False]
+    gap = float((d - dp).abs()[valid].mean())
+    print(f"render K2 vs plain MLP: depth mean abs {100 * gap:.2e} cm (max {100 * float((d - dp).abs().max()):.2e} cm), "
+          f"color max abs {float((c - cp).abs().max()):.2e}")
+    if gap > RENDER_GAP_M:
+        fail(f"render: K2 moves the mean depth {gap:.3e} m from the plain MLP's (limit {RENDER_GAP_M} m)")
 
 
-def score_mesh(cfg, cam, verts, faces, gt_poses):
-    """acc / comp / ratio of a mesh against the synthetic scene's GT mesh
-    culled to ``gt_poses``, as scripts/eval_synthetic_demo.py scores it
-    (GT lattice 192, 200k surface samples, ICP), with the port's tools."""
+def score_meshes(cfg, cam, meshes, gt_poses):
+    """acc / comp / ratio of each (verts, faces) against the synthetic
+    scene's GT mesh culled to ``gt_poses``, as
+    scripts/eval_synthetic_demo.py scores it (GT lattice 192, 200k surface
+    samples, ICP), with the port's tools."""
     from attentive_dfprior_tpu_torch.tools.cull_mesh import cull_mesh
     from attentive_dfprior_tpu_torch.tools.eval_recon import calc_3d_metric
     from attentive_dfprior_tpu_torch.utils.synthetic import SyntheticScene
 
     gt_v, gt_f, _ = SyntheticScene.from_config(cfg).gt_mesh(resolution=192)
     gt_cv, gt_cf = cull_mesh(gt_v, gt_f, gt_poses, H=cam.H, W=cam.W, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
-    return calc_3d_metric(verts, faces, gt_cv, gt_cf, n_samples=200_000)
+    return [calc_3d_metric(verts, faces, gt_cv, gt_cf, n_samples=200_000) for verts, faces in meshes]
 
 
 def phase_mesh(torch, dev, slam):
     """SLAMSystem.get_mesh on phase 4's map with every frame's pose in the
-    visibility mask (the eval_rec mesh), scored against the GT culled to
-    frames 0-10."""
-    path = os.path.join(slam.output, "mesh", "chip_smoke_mesh.ply")
-    t0 = time.perf_counter()
-    out = slam.get_mesh(path, idx=10, get_mask_use_all_frames=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if out is None or len(out[1]) == 0:
-        fail("mesh: no surface extracted")
-    verts, faces = out
-    if not np.isfinite(verts).all():
-        fail("mesh: non-finite vertices")
+    visibility mask (the eval_rec mesh), through K2 and then with the plain
+    MLP, both scored against the GT culled to frames 0-10: the gap between
+    the two is K2's own, the rest moves with the map between runs."""
     m = slam.mesher
-    t = m.last_timings
-    print(f"mesh: lattice {m.resolution}^3, marching tetrahedra {'native' if m.use_native else 'numpy'}, "
-          f"decoder MLPs through K2 {m.use_fused}: {len(verts)} vertices, {len(faces)} faces; "
-          f"field query {t['field_s']:.3f} s, host steps {t['host_s']:.3f} s ({wall:.3f} s in all)")
-    metrics = score_mesh(slam.cfg, slam.cam, verts, faces, slam.gt_c2w_list[:11])
-    print(f"mesh vs GT culled to frames 0-10: {json.dumps(metrics)} (printed, no gate at 11 frames)")
+    meshes = []
+    for fused in (True, False):
+        m.use_fused = fused
+        path = os.path.join(slam.output, "mesh", f"chip_smoke_mesh_{'k2' if fused else 'plain'}.ply")
+        t0 = time.perf_counter()
+        out = slam.get_mesh(path, idx=10, get_mask_use_all_frames=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if out is None or len(out[1]) == 0:
+            fail(f"mesh (fused={fused}): no surface extracted")
+        verts, faces = out
+        if not np.isfinite(verts).all():
+            fail(f"mesh (fused={fused}): non-finite vertices")
+        t = m.last_timings
+        print(f"mesh: lattice {m.resolution}^3, marching tetrahedra {'native' if m.use_native else 'numpy'}, "
+              f"decoder MLPs through {'K2' if fused else 'the plain MLP'}: {len(verts)} vertices, "
+              f"{len(faces)} faces; field query {t['field_s']:.3f} s, host steps {t['host_s']:.3f} s "
+              f"({wall:.3f} s in all)")
+        meshes.append(out)
+    m.use_fused = True
+    for fused, metrics in zip((True, False), score_meshes(slam.cfg, slam.cam, meshes, slam.gt_c2w_list[:11])):
+        print(f"mesh ({'K2' if fused else 'plain MLP'}) vs GT culled to frames 0-10: {json.dumps(metrics)} "
+              f"(printed, no gate at 11 frames)")
 
 
 def phase_room_yaml(torch, dev):
@@ -472,7 +548,7 @@ def phase_room_yaml(torch, dev):
     timings = {k: round(v, 3) for k, v in slam.timings.items()}
     print(f"room.yaml: {wall:.1f} s for {slam.last_idx + 1} frames (seconds by part: {json.dumps(timings)})")
     rec_v, rec_f, _ = read_ply(os.path.join(out_dir, "mesh", "final_mesh_eval_rec.ply"))
-    metrics = score_mesh(slam.cfg, slam.cam, rec_v, rec_f, slam.gt_c2w_list)
+    metrics = score_meshes(slam.cfg, slam.cam, [(rec_v, rec_f)], slam.gt_c2w_list)[0]
     print(f"room.yaml final_mesh_eval_rec.ply ({len(rec_v)} vertices, {len(rec_f)} faces) vs GT: "
           f"{json.dumps(metrics)}; gate {json.dumps(ROOM_GATE)}")
     bad = [k for k, lim in ROOM_GATE.items()
@@ -572,12 +648,16 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     kernels = build.port_kernels()
     paths = {}  # path -> {kernel: launches}, each counted from 0
+    images = {}  # path -> K2 weight images built (one per decoder and parameter version)
+    from attentive_dfprior_tpu_torch.ops.cuda.decoder_kernel import TC_CACHE
 
     def drive(name, fn, *args):
         for k in kernels:
             k.launches = 0
+        builds = TC_CACHE.builds
         out = fn(*args)
         paths[name] = {k.name: k.launches for k in kernels}
+        images[name] = TC_CACHE.builds - builds
         return out
 
     t_start = time.perf_counter()
@@ -622,8 +702,9 @@ def main() -> None:
         done(8)
     if 3 in phases:
         profile_cycles(torch, room0_cycles, room0)
-        print(f"phase 3 profiles: {time.perf_counter() - t_phase[0]:.1f} s")
+        print(f"phase 3 profile: {time.perf_counter() - t_phase[0]:.1f} s")
     print(f"launches by path: {json.dumps(paths)}")
+    print(f"K2 weight images built by path: {json.dumps(images)}")
     if kern is not None:
         def launches(name):
             return sum(p[name] for p in paths.values())
@@ -638,8 +719,8 @@ def main() -> None:
             {"name": "decoder_mlp", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/decoder_mlp.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/decoder_kernel.py:115",
              "launches": launches("decoder_mlp"), "max_abs_err": k2["max_abs_err"],
-             "ms": k2["c32o1"]["ms"], "plain_ms": k2["c32o1"]["plain_ms"], "bound_ms": k2["c32o1"]["bound_ms"],
-             "bound_by": k2["c32o1"]["bound_by"], "library_ms": None},
+             "ms": k2["c32o1n480000"]["ms"], "plain_ms": k2["c32o1n480000"]["plain_ms"],
+             "bound_ms": k2["c32o1n480000"]["bound_ms"], "bound_by": "operations", "library_ms": None},
             {"name": "cell_stencil", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/cell_stencil.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/stencil_kernel.py:87",
              "launches": launches("cell_stencil"), "max_abs_err": k3["max_abs_err"],
