@@ -2,21 +2,23 @@
 
 Usage:
     python -m attentive_dfprior_tpu_torch.run configs/Synthetic/room_tracking.yaml \\
-        [--end_idx N] [--output O] [--seed S] [--device cuda|cpu]
-        [--grid-vjp halo|bitfold|cellstencil|xla|sorted|pallas] [--adam-nonlazy]
-        [--set key.sub=value ...]
+        [--end_idx N] [--output O] [--input_folder F] [--resume] [--seed S]
+        [--device cuda|cpu] [--grid-vjp halo|bitfold|cellstencil|xla|sorted|pallas]
+        [--adam-nonlazy] [--set key.sub=value ...]
 
-Runs on the card unless ``--device cpu`` is given. ``--grid-vjp`` selects
-the feature grids' gradient variant and ``--adam-nonlazy`` steps every
-Adam leaf in every iteration: the JAX package's ``DFPRIOR_TRILINEAR_VJP``
-and ``DFPRIOR_ADAM_LAZY=0``. ``--set`` overrides
-config entries after loading (values parsed as YAML scalars), e.g.
-``--set loop_closure.enable=False --set loop_closure.final_refine=False``.
+Runs on the card unless ``--device cpu`` is given. ``--resume`` continues
+from the latest checkpoint under ``<output>/ckpts`` (either package's).
+``--grid-vjp`` selects the feature grids' gradient variant and
+``--adam-nonlazy`` steps every Adam leaf in every iteration: the JAX
+package's ``DFPRIOR_TRILINEAR_VJP`` and ``DFPRIOR_ADAM_LAZY=0``. ``--set``
+overrides config entries after loading (values parsed as YAML scalars),
+e.g. ``--set mapping.vis_freq=5``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import random
 from typing import Any, Dict, List, Optional
 
@@ -45,6 +47,8 @@ def main(argv: Optional[List[str]] = None):
     parser = argparse.ArgumentParser(description="Strict-mode SLAM (PyTorch/CUDA port).")
     parser.add_argument("config", type=str, help="path to the scene config")
     parser.add_argument("--output", type=str, help="overrides the config's output path")
+    parser.add_argument("--input_folder", type=str, help="overrides the config's input path")
+    parser.add_argument("--resume", action="store_true", help="resume from the latest checkpoint")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--end_idx", type=int, default=None, help="stop before this frame")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
@@ -66,7 +70,15 @@ def main(argv: Optional[List[str]] = None):
     apply_overrides(cfg, args.overrides)
     cfg["seed"] = args.seed
     slam = SLAMSystem(cfg, args, device=args.device, grid_vjp=args.grid_vjp, adam_lazy=not args.adam_nonlazy)
-    slam.run(end_idx=args.end_idx)
+    start = 0
+    if args.resume:
+        from attentive_dfprior_tpu_torch.utils.logger import latest_checkpoint
+
+        ckpt = latest_checkpoint(os.path.join(slam.output, "ckpts"))
+        if ckpt:
+            start = slam.resume(ckpt)
+            print(f"Resumed from {ckpt}; continuing at frame {start}")
+    slam.run(start_idx=start, end_idx=args.end_idx)
     return slam
 
 

@@ -362,6 +362,8 @@ class Mapper:
         color_refine: bool = False,
         ba_anchor: int = 0,
         pixel_idx: Optional[Dict[str, torch.Tensor]] = None,
+        visualizer=None,
+        cur_color_np: Optional[np.ndarray] = None,
     ) -> Tuple[Any, Dict[str, float], Optional[np.ndarray], Dict[str, torch.Tensor]]:
         """One mapped frame: fresh Adam state and the staged loops
         (ref: src/Mapper.py:262-484), in place on ``params``.
@@ -373,6 +375,15 @@ class Mapper:
                 (ref: src/Mapper.py:532-539).
             pixel_idx: optional {stage: (n_iters, F, n) flat pixel indices}
                 replacing the generator's draws.
+            visualizer: on frames its ``freq`` selects (with
+                ``cur_depth_np`` and ``cur_color_np`` given), a panel of the
+                current frame at ``cur_c2w_np`` is rendered from the current
+                scene at the top of every joint iteration that is a multiple
+                of its ``inside_freq`` (ref: src/Mapper.py:403-405). The
+                stage loops run in chunks between those iterations with one
+                Adam state and one draw stream, and the render draws nothing
+                and takes no gradient, so the optimization is the same
+                bit for bit.
 
         Returns:
             (params, {stage: last-iteration loss}, refined window c2w
@@ -414,6 +425,12 @@ class Mapper:
             pose_mask = None
             opt = params
 
+        vis_this_frame = (
+            visualizer is not None
+            and cur_depth_np is not None
+            and cur_color_np is not None
+            and idx % visualizer.freq == 0
+        )
         adam_state = adam_init(opt)
         losses: Dict[str, float] = {}
         stage_losses: Dict[str, torch.Tensor] = {}
@@ -424,17 +441,26 @@ class Mapper:
             # warm-up attention regularizer iterations (ref: Mapper.py:459-461)
             w_flags = [1.0 if (idx <= 1 and lo_end < (s + i) <= lo_end + 5) else 0.0 for i in range(n)]
             lrs = StageLRs(*[v * lr_factor for v in self.stage_lrs[stage]])
-            stage_losses[stage] = mapping_stage(
-                opt, adam_state, frames_color, frames_depth, frames_c2w_t,
-                frustum_masks, self.tsdf_volume, self.tsdf_bnds, self.bound,
-                n, w_flags, lrs, stage, pixs_per_image, self.cam, self.rcfg,
-                (self.scene_cfg.fix_high, fix_color), self.w_color_loss,
-                generator=generator,
-                pixel_idx=None if pixel_idx is None else pixel_idx[stage],
-                accum=self.accum, ba=ba_on, pose_mask=pose_mask,
-                ba_cam_lr=self.ba_cam_lr, grid_vjp=self.grid_vjp,
-                adam_lazy=self.adam_lazy,
-            )
+            # chunk starts: the panel iterations inside the stage
+            starts = [0]
+            if vis_this_frame:
+                starts += [a for a in range(1, n) if (s + a) % visualizer.inside_freq == 0]
+            chunks = []
+            for a, b in zip(starts, starts[1:] + [n]):
+                if vis_this_frame and (s + a) % visualizer.inside_freq == 0:
+                    visualizer.vis(idx, s + a, cur_depth_np, cur_color_np, cur_c2w_np, params, self.tsdf_volume)
+                chunks.append(mapping_stage(
+                    opt, adam_state, frames_color, frames_depth, frames_c2w_t,
+                    frustum_masks, self.tsdf_volume, self.tsdf_bnds, self.bound,
+                    b - a, w_flags[a:b], lrs, stage, pixs_per_image, self.cam, self.rcfg,
+                    (self.scene_cfg.fix_high, fix_color), self.w_color_loss,
+                    generator=generator,
+                    pixel_idx=None if pixel_idx is None else pixel_idx[stage][a:b],
+                    accum=self.accum, ba=ba_on, pose_mask=pose_mask,
+                    ba_cam_lr=self.ba_cam_lr, grid_vjp=self.grid_vjp,
+                    adam_lazy=self.adam_lazy,
+                ))
+            stage_losses[stage] = torch.cat(chunks)
         for stage, ls in stage_losses.items():
             losses[stage] = float(ls[-1])
         if ba_on:

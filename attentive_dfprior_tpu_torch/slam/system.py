@@ -16,9 +16,15 @@ reference-faithful one (unobserved voxels at -1); mapping reads it too, or
 a filled copy under ``tsdf.fill_unobserved_train``; meshing reads a copy
 filled by ``tsdf.fill_unobserved`` (``tsdf/fusion.py:fill_unobserved_volume``).
 
+Loop closure (``slam/loop_closure.py``) relaxes the keyframes after a
+mapped frame that revisits an old one, and refines the whole trajectory at
+the last frame before its checkpoint and meshes are written. The
+Visualizers write rendered-vs-input panels (``mapping_vis/``,
+``tracking_vis/``). ``resume`` restores a checkpoint and ``run(start_idx)``
+continues from it.
+
 Not in this port yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): the async sync modes, ``parallel.enable``, loop closure
-and the visualizer.
+ROADMAP.md item): the async sync modes and ``parallel.enable``.
 """
 
 from __future__ import annotations
@@ -37,13 +43,16 @@ from attentive_dfprior_tpu_torch.ops.grid_sample import grid_sampler
 from attentive_dfprior_tpu_torch.ops.pose import clamp_pose_update
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, Renderer
 from attentive_dfprior_tpu_torch.slam.keyframes import KeyframeStore, keyframe_selection_overlap
+from attentive_dfprior_tpu_torch.slam.loop_closure import LoopCloser
 from attentive_dfprior_tpu_torch.slam.mapper import Mapper
 from attentive_dfprior_tpu_torch.slam.tracker import Tracker
 from attentive_dfprior_tpu_torch.tsdf.fusion import fill_unobserved_volume, legacy_observed_mask
 from attentive_dfprior_tpu_torch.utils.datasets import get_dataset
 from attentive_dfprior_tpu_torch.utils.device import resolve_device
-from attentive_dfprior_tpu_torch.utils.logger import Logger
+from attentive_dfprior_tpu_torch.utils.logger import Logger, load_checkpoint
 from attentive_dfprior_tpu_torch.utils.mesher import Mesher
+from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer
+from attentive_dfprior_tpu_torch.utils.visualizer import Visualizer
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -142,9 +151,6 @@ class SLAMSystem:
             raise _not_ported(f"sync_method {sync!r}", "'Async modes'")
         if bool(cfg.get("parallel", {}).get("enable", False)):
             raise _not_ported("parallel.enable", "'Sharding and multihost'")
-        lc = cfg.get("loop_closure") or {}
-        if (lc.get("enable") or lc.get("final_refine")) and not bool(cfg["tracking"].get("gt_camera", False)):
-            raise _not_ported("loop_closure.enable / final_refine", "'Loop closure'")
 
         self.verbose = bool(cfg.get("verbose", False))
         self.output = output or (getattr(args, "output", None) or cfg["data"]["output"])
@@ -193,6 +199,20 @@ class SLAMSystem:
         )
         self.mesher = Mesher(cfg, self.cam, self.scene_cfg.bound, self.tsdf_bnds, self.device)
         self.logger = Logger(os.path.join(self.output, "ckpts"), self.verbose)
+        self.visualizer = Visualizer(
+            freq=int(cfg["mapping"]["vis_freq"]),
+            inside_freq=int(cfg["mapping"]["vis_inside_freq"]),
+            vis_dir=os.path.join(self.output, "mapping_vis"),
+            renderer=self.renderer,
+            verbose=self.verbose,
+        )
+        self.tracking_visualizer = Visualizer(
+            freq=int(cfg["tracking"]["vis_freq"]),
+            inside_freq=int(cfg["tracking"]["vis_inside_freq"]),
+            vis_dir=os.path.join(self.output, "tracking_vis"),
+            renderer=self.renderer,
+            verbose=self.verbose,
+        )
         self.save_selected_keyframes_info = bool(cfg["mapping"].get("save_selected_keyframes_info", False))
         self.selected_keyframes: Dict[int, list] = {}
 
@@ -208,10 +228,24 @@ class SLAMSystem:
         cap = int(m.get("keyframe_capacity", max(8, self.n_img // self.keyframe_every + 4)))
         self.keyframes = KeyframeStore(cap, self.cam.H, self.cam.W, self.device)
 
+        lc_cfg = cfg
+        lc = cfg.get("loop_closure") or {}
+        if bool(cfg["tracking"].get("gt_camera", False)) and (lc.get("enable") or lc.get("final_refine")):
+            # re-localizing ground-truth poses can only perturb them
+            print("[system] loop_closure disabled: tracking.gt_camera is set")
+            lc_cfg = {**cfg, "loop_closure": {}}
+        # re-localization renders against the reference-faithful prior, as
+        # tracking does
+        self.loop_closer = LoopCloser(
+            lc_cfg, self.tracker, self.keyframes, self.cam, self.rcfg, self.scene_cfg.bound,
+            self.tsdf_volume_track, self.tsdf_bnds, log_fn=self._log_metrics,
+        )
+
         self.estimate_c2w_list = np.zeros((self.n_img, 4, 4), dtype=np.float32)
         self.gt_c2w_list = np.zeros((self.n_img, 4, 4), dtype=np.float32)
         self._np_rng = np.random.default_rng(seed)
-        self.timings: Dict[str, float] = {"track": 0.0, "map": 0.0, "mesh": 0.0}
+        # seconds (and rays) of the parts: track, map, loop, mesh
+        self.profiler = PhaseTimer()
         self.last_idx: Optional[int] = None  # the last frame run() processed
         self._metrics_path = os.path.join(self.output, "metrics.jsonl")
 
@@ -219,6 +253,20 @@ class SLAMSystem:
         record.setdefault("t", round(time.time(), 4))
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+    @property
+    def timings(self) -> Dict[str, float]:
+        """Seconds by part: tracking and mapping without their panels, loop
+        closure (relaxations and the final refine), panels, meshes."""
+        s = self.profiler.seconds
+        vt, vm = self.tracking_visualizer.seconds, self.visualizer.seconds
+        return {
+            "track": s.get("track", 0.0) - vt,
+            "map": s.get("map", 0.0) - vm,
+            "loop": s.get("loop", 0.0),
+            "vis": vt + vm,
+            "mesh": s.get("mesh", 0.0),
+        }
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
@@ -241,18 +289,29 @@ class SLAMSystem:
         (verts, faces), or None when there is no surface."""
         idx = self.last_idx if idx is None else idx
         K = len(self.keyframes)
-        t0 = time.time()
-        out = self.mesher.get_mesh(
-            mesh_out_file, self.params, self.tsdf_volume_mesh, self.keyframes.depth[:K].cpu().numpy(),
-            self.keyframes.poses_np(), self.estimate_c2w_list, idx,
-            get_mask_use_all_frames=get_mask_use_all_frames,
-        )
-        self.timings["mesh"] += time.time() - t0
-        return out
+        with self.profiler.phase("mesh"):
+            return self.mesher.get_mesh(
+                mesh_out_file, self.params, self.tsdf_volume_mesh, self.keyframes.depth[:K].cpu().numpy(),
+                self.keyframes.poses_np(), self.estimate_c2w_list, idx,
+                get_mask_use_all_frames=get_mask_use_all_frames,
+            )
 
-    def visualize(self, *args, **kwargs):
-        """Rendered-vs-input panels."""
-        raise _not_ported("the visualizer", "'Visualizer'")
+    def resume(self, ckpt_path: str) -> int:
+        """Restore a checkpoint of either package (scene, trajectories,
+        keyframes re-read from the dataset, selected keyframes); returns the
+        next frame to process. (The reference has no resume, SURVEY §5.)"""
+        self.params, meta = load_checkpoint(ckpt_path, self.params)
+        idx = meta["idx"]
+        self.estimate_c2w_list[: len(meta["estimate_c2w_list"])] = meta["estimate_c2w_list"]
+        self.gt_c2w_list[: len(meta["gt_c2w_list"])] = meta["gt_c2w_list"]
+        kf_gt = meta.get("keyframe_gt_c2w")
+        for slot, kf_idx in enumerate(meta["keyframe_idx_list"]):
+            _, color, depth, _ = self.dataset[int(kf_idx)]
+            gt = kf_gt[slot] if kf_gt is not None else self.gt_c2w_list[int(kf_idx)]
+            self.keyframes.add(int(kf_idx), color, depth, meta["keyframe_est_c2w"][slot], gt)
+        self.selected_keyframes = meta.get("selected_keyframes", {})
+        self.last_idx = idx
+        return idx + 1
 
     # ------------------------------------------------------------------
 
@@ -287,7 +346,6 @@ class SLAMSystem:
         return f_color, f_depth, f_c2w, slots
 
     def _map_frame(self, idx, color, depth, c2w, gt_c2w, first: bool):
-        t0 = time.time()
         color_refine = not first and idx == self.n_img - 1 and self.color_refine
         window_size = None
         outer = 1
@@ -300,40 +358,50 @@ class SLAMSystem:
             window_size = self.mapper.mapping_window_size * 2
         else:
             num_iters, lr_factor = self.mapper.num_joint_iters, self.mapper.lr_factor
+        # no panels on the first frame (by default) or in the color refinement
+        no_vis = color_refine or (idx == 0 and self.cfg["mapping"].get("no_vis_on_first_frame", True))
 
         losses: Dict[str, float] = {}
-        for _ in range(outer):
-            f_color, f_depth, f_c2w, slots = self._select_window(color, depth, c2w, window_size)
-            if self.save_selected_keyframes_info:
-                self.selected_keyframes[idx] = [{"est_c2w": f_c2w[i]} for i in range(len(f_c2w))]
-            # BA gauge anchor: the window keyframe with the smallest frame index
-            if len(slots) > 0:
-                ba_anchor = int(np.argmin([self.keyframes.frame_idx[int(s)] for s in slots]))
-            else:
-                ba_anchor = 0
-            self.params, losses, refined_c2w, _ = self.mapper.optimize_map(
-                self.params, num_iters, lr_factor, idx, f_color, f_depth, f_c2w,
-                generator=self.generator, cur_depth_np=np.asarray(depth),
-                cur_c2w_np=c2w, color_refine=color_refine, ba_anchor=ba_anchor,
-            )
-            if refined_c2w is not None:
-                # BA write-back through the trust-region clamp: window
-                # keyframes into the store, the current frame into the trajectory
-                mcfg = self.cfg["mapping"]
-                max_dt = float(mcfg.get("ba_max_dt", 0.02))
-                max_rot = float(np.deg2rad(mcfg.get("ba_max_rot_deg", 1.0)))
-                clamped = np.stack(
-                    [clamp_pose_update(f_c2w[w], refined_c2w[w], max_dt, max_rot) for w in range(len(refined_c2w))]
+        with self.profiler.phase("map", rays=outer * num_iters * self.mapper.mapping_pixels):
+            for _ in range(outer):
+                f_color, f_depth, f_c2w, slots = self._select_window(color, depth, c2w, window_size)
+                if self.save_selected_keyframes_info:
+                    self.selected_keyframes[idx] = [{"est_c2w": f_c2w[i]} for i in range(len(f_c2w))]
+                # BA gauge anchor: the window keyframe with the smallest frame index
+                if len(slots) > 0:
+                    ba_anchor = int(np.argmin([self.keyframes.frame_idx[int(s)] for s in slots]))
+                else:
+                    ba_anchor = 0
+                self.params, losses, refined_c2w, _ = self.mapper.optimize_map(
+                    self.params, num_iters, lr_factor, idx, f_color, f_depth, f_c2w,
+                    generator=self.generator, cur_depth_np=np.asarray(depth),
+                    cur_c2w_np=c2w, color_refine=color_refine, ba_anchor=ba_anchor,
+                    visualizer=None if no_vis else self.visualizer, cur_color_np=np.asarray(color),
                 )
-                for w, sl in enumerate(slots):
-                    self.keyframes.update_pose(int(sl), clamped[w])
-                c2w = clamped[-1]
-                self.estimate_c2w_list[idx] = clamped[-1]
-        self.timings["map"] += time.time() - t0
+                if refined_c2w is not None:
+                    # BA write-back through the trust-region clamp: window
+                    # keyframes into the store, the current frame into the trajectory
+                    mcfg = self.cfg["mapping"]
+                    max_dt = float(mcfg.get("ba_max_dt", 0.02))
+                    max_rot = float(np.deg2rad(mcfg.get("ba_max_rot_deg", 1.0)))
+                    clamped = np.stack(
+                        [clamp_pose_update(f_c2w[w], refined_c2w[w], max_dt, max_rot)
+                         for w in range(len(refined_c2w))]
+                    )
+                    for w, sl in enumerate(slots):
+                        self.keyframes.update_pose(int(sl), clamped[w])
+                    c2w = clamped[-1]
+                    self.estimate_c2w_list[idx] = clamped[-1]
 
         # keyframe bookkeeping (ref: src/Mapper.py:560-565)
         if (idx % self.keyframe_every == 0 or idx == self.n_img - 2) and idx not in self.keyframes.frame_idx:
             self.keyframes.add(idx, color, depth, c2w, gt_c2w)
+        # revisit-gated keyframe relaxation, on the keyframes including this one
+        if self.loop_closer.enable:
+            with self.profiler.phase("loop"):
+                self.loop_closer.maybe_relax(
+                    idx, np.asarray(depth), c2w, self.estimate_c2w_list, self.params, self.generator
+                )
         if self.verbose:
             print(f"Mapping frame {idx}  losses={losses}")
         self._log_metrics(
@@ -342,12 +410,12 @@ class SLAMSystem:
         )
 
     def _track_frame(self, idx, color, depth, gt_c2w):
-        t0 = time.time()
-        c2w, loss = self.tracker.track(
-            self.params, idx, self._to_device(color), self._to_device(depth), gt_c2w,
-            self.estimate_c2w_list, generator=self.generator,
-        )
-        self.timings["track"] += time.time() - t0
+        t = self.tracker
+        with self.profiler.phase("track", rays=0 if t.gt_camera else t.tracking_pixels * t.num_cam_iters):
+            c2w, loss = t.track(
+                self.params, idx, self._to_device(color), self._to_device(depth), gt_c2w,
+                self.estimate_c2w_list, generator=self.generator, visualizer=self.tracking_visualizer,
+            )
         self.estimate_c2w_list[idx] = c2w
         if self.verbose:
             print(f"Tracking frame {idx}  loss={loss:.3f}")
@@ -355,14 +423,16 @@ class SLAMSystem:
 
     # ------------------------------------------------------------------
 
-    def run(self, end_idx: Optional[int] = None) -> np.ndarray:
-        """Strict-mode SLAM loop over frames [0, end_idx); returns the
-        estimated trajectory (n_img, 4, 4)."""
+    def run(self, start_idx: int = 0, end_idx: Optional[int] = None) -> np.ndarray:
+        """Strict-mode SLAM loop over frames [start_idx, end_idx); returns
+        the estimated trajectory (n_img, 4, 4). ``start_idx`` > 0 continues
+        a run restored by ``resume``."""
         n = self.n_img if end_idx is None else min(end_idx, self.n_img)
         stop_at = self.cfg["mapping"].get("stop_at_frame")
         if stop_at is not None:
             n = min(n, int(stop_at) + 1)
-        for idx in range(n):
+        self.dataset.prefetch(range(start_idx, n))
+        for idx in range(start_idx, n):
             _, color, depth, gt_c2w = self.dataset[idx]
             self.gt_c2w_list[idx] = gt_c2w
             if idx == 0:
@@ -374,6 +444,13 @@ class SLAMSystem:
                     continue  # skip mapping (ref: Mapper.py:521-524)
                 if idx % self.every_frame == 0 or idx == n - 1:
                     self._map_frame(idx, color, depth, self.estimate_c2w_list[idx], gt_c2w, first=False)
+            if idx == n - 1 and self.loop_closer.final_refine_on:
+                # the whole trajectory against the final map, before the
+                # last side outputs write the checkpoint and meshes
+                with self.profiler.phase("loop"):
+                    self.loop_closer.final_refine(
+                        self.dataset, self.estimate_c2w_list, self.params, start_idx, n, self.generator
+                    )
             self.last_idx = idx
             self._side_outputs(idx, n)
         return self.estimate_c2w_list

@@ -234,18 +234,23 @@ class Tracker:
         estimate_c2w_list: np.ndarray,
         generator: Optional[torch.Generator] = None,
         pixel_idx: Optional[torch.Tensor] = None,
+        visualizer=None,
     ) -> Tuple[np.ndarray, float]:
         """Track one frame; returns (estimated c2w 4x4, last-iteration loss).
 
         The returned loss is the LAST iteration's while the pose is the
         min-loss candidate, as in the reference (ref: src/Tracker.py:239,
-        255-261).
+        255-261). With ``visualizer``, on frames its ``freq`` selects, the
+        reference's inside-iteration panels (ref: src/Tracker.py:241-243)
+        are rendered afterwards at the pre-step poses of every
+        ``inside_freq``-th iteration: the scene is frozen while tracking, so
+        that is the render the reference makes inside the loop.
         """
         if idx == 0 or self.gt_camera:
             return gt_c2w.astype(np.float32), 0.0
         init_c2w = self.initial_pose(idx, estimate_c2w_list)
         cam_tensor = torch.as_tensor(pose_tensor_from_matrix(init_c2w), device=self.device)
-        best, losses, _, _ = track_frame(
+        best, losses, _, iter_tensors = track_frame(
             params, cam_tensor, color_im, depth_im, self.tsdf_volume,
             self.tsdf_bnds, self.bound, self.cam, self.rcfg,
             self.tracking_pixels, self.num_cam_iters, self.ignore_edge_W,
@@ -253,6 +258,9 @@ class Tracker:
             self.w_color_loss, self.cam_lr, self.seperate_LR,
             self.lr_final_factor, generator, pixel_idx, self.grid_vjp, self.adam_lazy,
         )
+        if visualizer is not None and idx % visualizer.freq == 0:
+            for it in range(0, self.num_cam_iters, visualizer.inside_freq):
+                visualizer.vis(idx, it, depth_im, color_im, iter_tensors[it], params, self.tsdf_volume)
         with torch.no_grad():
             c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()
         return c2w.astype(np.float32), float(losses[-1])

@@ -48,6 +48,7 @@ def build_tsdf_volume(
     vol = TSDFVolume(load_bound(cfg), voxel_size=voxel_size, device=device)
     frame_reader = get_dataset(cfg, args, cfg.get("scale", 1))
     K = cam.K.astype(np.float32)
+    frame_reader.prefetch(range(0, len(frame_reader), space))
     for idx in range(0, len(frame_reader), space):
         _, gt_color, gt_depth, gt_c2w = frame_reader[idx]
         c2w = np.asarray(gt_c2w, dtype=np.float64).copy()

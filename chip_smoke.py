@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # phases 1-5 and 7, one card
     python3 chip_smoke.py --phases 1,2  # build + kernel checks only
     python3 chip_smoke.py --phases 1,8  # the room.yaml quality run
+    python3 chip_smoke.py --phases 1,9  # the room_tracking.yaml quality run
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
@@ -21,9 +22,13 @@ Phases (each failure exits non-zero):
      x 200 rays. The halo cycle is profiled at the very end of the run: the
      profiler slows what runs after it in the process;
   4. the entry point ``attentive_dfprior_tpu_torch.run`` on
-     configs/Synthetic/room_tracking.yaml with loop closure off, frames
-     0..10 (tracks 1-10, maps 0, 5 and 10, writes the final meshes):
-     losses, translation error against ground truth, checkpoint;
+     configs/Synthetic/room_tracking.yaml as configured (loop closure on)
+     with panels every 5th frame, frames 0..15 (tracks 1-15, maps 0, 5, 10
+     and 15, relaxes the keyframes at 15, refines frames 1-15, writes the
+     final meshes): losses, loop-closure records, aligned and unaligned
+     ATE, seconds by part, panels per directory against the count the
+     gates give; then ``--resume --end_idx 18``, which must start at frame
+     16 and write checkpoint 00017;
   5. ``Renderer.render_img`` of the last mapped frame from the mapped scene
      (K2 on the path), then once more with the plain MLP: depth L1 against
      the sensor depth for both, and the gap between the two renders;
@@ -33,13 +38,19 @@ Phases (each failure exits non-zero):
   7. the Mesher: ``SLAMSystem.get_mesh`` on phase 4's map (K2 on the path),
      then once more with the plain MLP: field-query and host seconds, and
      accuracy / completion / ratio against the synthetic GT mesh culled to
-     frames 0-10 (printed, no gate);
+     frames 0-15 (printed, no gate);
   8. (only on request) the whole configs/Synthetic/room.yaml run (80
      frames, GT poses) and its ``final_mesh_eval_rec.ply`` scored as
      scripts/eval_synthetic_demo.py scores it, with the port's own tools;
-     gate: accuracy <= 2.2 cm, completion <= 2.0 cm, ratio >= 94 %.
+     gate: accuracy <= 2.2 cm, completion <= 2.0 cm, ratio >= 94 %;
+  9. (only on request) the whole configs/Synthetic/room_tracking.yaml run
+     as shipped (120 frames, seed 0, loop closure, panels at the config's
+     gates): aligned ATE with the per-frame error quartiles and maximum,
+     loop-closure records, seconds by part, and ``final_mesh_eval_rec.ply``
+     scored against the GT culled to all 120 poses (printed, no gate);
+     gate: aligned ATE <= 4.5 cm.
 
-Every path (each timed variant of phase 3, phases 4, 5, 7 and 8) runs with
+Every path (each timed variant of phase 3, phases 4, 5, 7, 8 and 9) runs with
 the launch counts set to 0 just before it and read just after; the
 ``kernels`` JSON line reports each kernel's launches over those paths with
 its error, time, plain time and bound. The last line is the contract's
@@ -68,7 +79,9 @@ ROOM_TRACKING = os.path.join(REPO, "configs", "Synthetic", "room_tracking.yaml")
 ROOM = os.path.join(REPO, "configs", "Synthetic", "room.yaml")
 ROOM_GATE = {"accuracy_cm": 2.2, "completion_cm": 2.0, "completion_ratio_pct": 94.0}
 RENDER_GAP_M = 1e-6  # K2 vs plain MLP render, mean depth gap: ~25x what an H100 reads (3.2e-8, 4.1e-8 m)
-NO_LOOP_CLOSURE = ["--set", "loop_closure.enable=False", "--set", "loop_closure.final_refine=False"]
+ENTRY_END = 16  # phase 4 runs frames 0..15: at 15, keyframe 0 is loop_closure.min_gap frames old
+PANELS_EVERY_5 = ["--set", "mapping.vis_freq=5", "--set", "tracking.vis_freq=5"]
+ATE_GATE_CM = 4.5  # phase 9, aligned: between the JAX package's 2.871 cm with loop closure and 5.82 without (TPU)
 
 
 def fail(msg: str) -> None:
@@ -418,50 +431,115 @@ def profile_cycle(torch, cycle, cycle_s: float, label: str) -> None:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms  {a.count:6d} x  {a.key[:90]}")
 
 
+def expected_panels(cfg, start: int, n: int):
+    """Panels per directory that the Visualizers' gates give for frames
+    [start, n) of a run whose config is ``cfg``."""
+    m, t = cfg["mapping"], cfg["tracking"]
+    mapping = 0
+    for i in range(start, n):
+        if not (i == 0 or i % m["every_frame"] == 0 or i == n - 1):
+            continue
+        first = i == 0
+        color_refine = not first and i == cfg["data"]["n_frames"] - 1 and m.get("color_refine", True)
+        if color_refine or (first and m.get("no_vis_on_first_frame", True)) or i % m["vis_freq"]:
+            continue
+        mapping += len(range(0, m["iters_first"] if first else m["iters"], m["vis_inside_freq"]))
+    tracking = 0 if t["gt_camera"] else sum(
+        len(range(0, t["iters"], t["vis_inside_freq"])) for i in range(max(start, 1), n) if i % t["vis_freq"] == 0
+    )
+    return {"mapping_vis": mapping, "tracking_vis": tracking}
+
+
+def check_panels(slam, start: int, n: int, label: str) -> None:
+    got = {d: len(os.listdir(os.path.join(slam.output, d))) for d in ("mapping_vis", "tracking_vis")}
+    want = expected_panels(slam.cfg, start, n)
+    print(f"{label}: panels per directory {json.dumps(got)}, the gates give {json.dumps(want)}")
+    if got != want:
+        fail(f"{label}: panel counts {got} differ from the gates' {want}")
+
+
+def report_run(slam, out_dir, wall: float, label: str, records):
+    """Print a run's loop-closure records, aligned ATE (the port's eval_ate
+    on its last checkpoint), unaligned ATE and seconds by part; fail when
+    a loss is non-finite. Returns (aligned ATE m, per-frame aligned error m,
+    unaligned per-frame error m)."""
+    from attentive_dfprior_tpu_torch.tools import eval_ate
+    from attentive_dfprior_tpu_torch.utils.logger import latest_checkpoint
+
+    losses = [r["loss"] for r in records if r["event"] == "track"]
+    losses += [v for r in records if r["event"] == "map" for v in r["losses"].values()]
+    if not np.isfinite(losses).all():
+        fail(f"{label}: non-finite loss")
+    for r in records:
+        if r["event"].startswith("loop_"):
+            print(f"{label} {r['event']}: {json.dumps(r)}")
+    n = slam.last_idx + 1
+    est, gt = slam.estimate_c2w_list[:n], slam.gt_c2w_list[:n]
+    err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+    ckpt = latest_checkpoint(os.path.join(out_dir, "ckpts"))
+    ate = eval_ate.evaluate_checkpoint(ckpt)
+    _, _, aligned_err = eval_ate.align(gt[:, :3, 3].T.astype(np.float64), est[:, :3, 3].T.astype(np.float64))
+    parts = {k: round(v, 3) for k, v in slam.timings.items()}
+    parts["set-up"] = round(wall - sum(slam.timings.values()), 3)
+    print(f"{label} seconds by part: {json.dumps(parts)} (set-up: the system's build, prior fusion, dataset "
+          f"frames rendered on the host)")
+    print(f"{label}: {wall:.1f} s for {n} frames; aligned ATE RMSE {ate['absolute_translational_error.rmse_cm']:.3f} "
+          f"cm over {ate['compared_pose_pairs']} poses ({os.path.basename(ckpt)}); unaligned ATE RMSE "
+          f"{100 * float(np.sqrt(np.mean(err ** 2))):.3f} cm")
+    return ate["absolute_translational_error.rmse"], aligned_err, err
+
+
 def phase_entry(torch, dev):
     from attentive_dfprior_tpu_torch import run as run_mod
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_run_")
-    argv = [ROOM_TRACKING, "--end_idx", "11", "--output", out_dir, "--device", "cuda", *NO_LOOP_CLOSURE]
+    argv = [ROOM_TRACKING, "--output", out_dir, "--device", "cuda", *PANELS_EVERY_5]
     t0 = time.perf_counter()
     os.chdir(REPO)  # the config's relative paths (pretrained prior, inherit_from)
-    slam = run_mod.main(argv)
-    est = slam.estimate_c2w_list
+    slam = run_mod.main(argv + ["--end_idx", str(ENTRY_END)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    records = [json.loads(ln) for ln in open(os.path.join(out_dir, "metrics.jsonl"))]
+    metrics = os.path.join(out_dir, "metrics.jsonl")
+    records = [json.loads(ln) for ln in open(metrics)]
     for r in records:
         if r["event"] == "track":
             print(f"entry track frame {r['idx']}: loss {r['loss']:.4f}")
-        else:
+        elif r["event"] == "map":
             print(f"entry map frame {r['idx']}: losses {json.dumps(r['losses'])}")
-    losses = [r["loss"] for r in records if r["event"] == "track"]
-    losses += [v for r in records if r["event"] == "map" for v in r["losses"].values()]
-    if not np.isfinite(losses).all():
-        fail("entry point: non-finite loss")
-    gt = slam.gt_c2w_list[:11]
-    err = np.linalg.norm(est[:11, :3, 3] - gt[:, :3, 3], axis=1)
-    ate = float(np.sqrt(np.mean(err**2)))
-    parts = {k: round(v, 3) for k, v in slam.timings.items()}
-    print(f"entry point seconds by part: {json.dumps(parts)}; the rest is set-up (dataset frames rendered "
-          f"on the host, prior fusion)")
-    print(f"entry point: {wall:.1f} s for 11 frames; translation error per frame (cm): "
-          + " ".join(f"{100 * e:.2f}" for e in err) + f"; ATE RMSE {100 * ate:.3f} cm (unaligned)")
-    if ate > 0.10:
-        fail(f"entry point: ATE {100 * ate:.2f} cm above 10 cm")
-    ckpt = os.path.join(out_dir, "ckpts", "00010.npz")
-    if not os.path.exists(ckpt):
+    _, _, err = report_run(slam, out_dir, wall, "entry point", records)
+    print("entry point: unaligned translation error per frame (cm): " + " ".join(f"{100 * e:.2f}" for e in err))
+    if float(np.sqrt(np.mean(err**2))) > 0.10:
+        fail("entry point: unaligned ATE above 10 cm")
+    events = [r["event"] for r in records]
+    if "loop_relax" not in events or "loop_final_refine" not in events:
+        fail(f"entry point: loop closure did not run (relaxations {events.count('loop_relax')}, "
+             f"refines {events.count('loop_final_refine')})")
+    check_panels(slam, 0, ENTRY_END, "entry point")
+    if not os.path.exists(os.path.join(out_dir, "ckpts", f"{ENTRY_END - 1:05d}.npz")):
         fail("entry point: no checkpoint written")
-    print(f"entry point: checkpoint {os.path.basename(ckpt)} written")
+
+    # resume the same output for two more frames
+    t0 = time.perf_counter()
+    resumed = run_mod.main(argv + ["--resume", "--end_idx", str(ENTRY_END + 2)])
+    torch.cuda.synchronize()
+    new = [json.loads(ln) for ln in open(metrics)][len(records):]
+    tracked = [r["idx"] for r in new if r["event"] == "track"]
+    ckpt = os.path.join(out_dir, "ckpts", f"{ENTRY_END + 1:05d}.npz")
+    print(f"resume: {time.perf_counter() - t0:.1f} s; tracked frames {tracked}; "
+          f"{os.path.basename(ckpt)} written {os.path.exists(ckpt)}; "
+          f"records {json.dumps([r for r in new if r['event'].startswith('loop_')])}")
+    if tracked != [ENTRY_END, ENTRY_END + 1] or not os.path.exists(ckpt) or resumed.last_idx != ENTRY_END + 1:
+        fail(f"resume: expected frames {ENTRY_END}-{ENTRY_END + 1} and {os.path.basename(ckpt)}")
     return slam
 
 
 def phase_render(torch, dev, slam):
-    """Frame 10 rendered through K2, then once more with the plain MLP on the
-    same map and pose. The map moves between runs (ROADMAP F2), so the depth
+    """The last mapped frame rendered through K2, then once more with the
+    plain MLP on the same map and pose. The map moves between runs (ROADMAP F2), so the depth
     L1 of one run says little about K2; the gap between the two renders is
     K2's own. Fails if it shifts the mean depth by more than RENDER_GAP_M."""
-    _, color, depth, _ = slam.dataset[10]
+    last = ENTRY_END - 1
+    _, color, depth, _ = slam.dataset[last]
     gt_d = torch.as_tensor(depth, device=dev)
     valid = gt_d > 0
     renderer = slam.renderer
@@ -469,14 +547,14 @@ def phase_render(torch, dev, slam):
     for fused in (True, False):
         renderer.use_fused = fused
         t0 = time.perf_counter()
-        d, _, c = renderer.render_img(slam.params, slam.estimate_c2w_list[10], slam.tsdf_volume, gt_depth=depth)
+        d, _, c = renderer.render_img(slam.params, slam.estimate_c2w_list[last], slam.tsdf_volume, gt_depth=depth)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if not (torch.isfinite(d).all() and torch.isfinite(c).all()):
             fail(f"render (fused={fused}): non-finite output")
         l1 = float((d - gt_d).abs()[valid].mean())
         cl1 = float((c - torch.as_tensor(color, device=dev)).abs().mean())
-        print(f"render frame 10 ({tuple(d.shape)}, {'K2' if fused else 'plain MLP'}): {dt:.3f} s, "
+        print(f"render frame {last} ({tuple(d.shape)}, {'K2' if fused else 'plain MLP'}): {dt:.3f} s, "
               f"depth L1 {100 * l1:.3f} cm, color L1 {cl1:.4f}")
         runs[fused] = d, c
     renderer.use_fused = True
@@ -505,15 +583,16 @@ def score_meshes(cfg, cam, meshes, gt_poses):
 def phase_mesh(torch, dev, slam):
     """SLAMSystem.get_mesh on phase 4's map with every frame's pose in the
     visibility mask (the eval_rec mesh), through K2 and then with the plain
-    MLP, both scored against the GT culled to frames 0-10: the gap between
+    MLP, both scored against the GT culled to the frames run: the gap between
     the two is K2's own, the rest moves with the map between runs."""
+    last = ENTRY_END - 1
     m = slam.mesher
     meshes = []
     for fused in (True, False):
         m.use_fused = fused
         path = os.path.join(slam.output, "mesh", f"chip_smoke_mesh_{'k2' if fused else 'plain'}.ply")
         t0 = time.perf_counter()
-        out = slam.get_mesh(path, idx=10, get_mask_use_all_frames=True)
+        out = slam.get_mesh(path, idx=last, get_mask_use_all_frames=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if out is None or len(out[1]) == 0:
@@ -528,9 +607,9 @@ def phase_mesh(torch, dev, slam):
               f"({wall:.3f} s in all)")
         meshes.append(out)
     m.use_fused = True
-    for fused, metrics in zip((True, False), score_meshes(slam.cfg, slam.cam, meshes, slam.gt_c2w_list[:11])):
-        print(f"mesh ({'K2' if fused else 'plain MLP'}) vs GT culled to frames 0-10: {json.dumps(metrics)} "
-              f"(printed, no gate at 11 frames)")
+    for fused, metrics in zip((True, False), score_meshes(slam.cfg, slam.cam, meshes, slam.gt_c2w_list[: last + 1])):
+        print(f"mesh ({'K2' if fused else 'plain MLP'}) vs GT culled to frames 0-{last}: {json.dumps(metrics)} "
+              f"(printed, no gate at {last + 1} frames)")
 
 
 def phase_room_yaml(torch, dev):
@@ -557,6 +636,33 @@ def phase_room_yaml(torch, dev):
         fail(f"room.yaml mesh misses the gate on {bad}: {metrics}")
 
 
+def phase_room_tracking(torch, dev):
+    """configs/Synthetic/room_tracking.yaml whole through the entry point,
+    as shipped; fails above ATE_GATE_CM aligned ATE."""
+    from attentive_dfprior_tpu_torch import run as run_mod
+    from attentive_dfprior_tpu_torch.utils.ply import read_ply
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tracking_")
+    os.chdir(REPO)
+    t0 = time.perf_counter()
+    slam = run_mod.main([ROOM_TRACKING, "--output", out_dir, "--device", "cuda", "--seed", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    records = [json.loads(ln) for ln in open(os.path.join(out_dir, "metrics.jsonl"))]
+    ate, aligned_err, _ = report_run(slam, out_dir, wall, "room_tracking.yaml", records)
+    q = np.percentile(100 * aligned_err, [25, 50, 75])
+    print(f"room_tracking.yaml aligned per-frame error (cm): quartiles {q[0]:.3f} / {q[1]:.3f} / {q[2]:.3f}, "
+          f"max {100 * aligned_err.max():.3f} at frame {int(np.argmax(aligned_err))}; gate: aligned ATE <= "
+          f"{ATE_GATE_CM} cm (JAX package, TPU, seed 0: 2.871 cm with loop closure, 5.82 cm without)")
+    check_panels(slam, 0, slam.last_idx + 1, "room_tracking.yaml")
+    rec_v, rec_f, _ = read_ply(os.path.join(out_dir, "mesh", "final_mesh_eval_rec.ply"))
+    metrics = score_meshes(slam.cfg, slam.cam, [(rec_v, rec_f)], slam.gt_c2w_list[: slam.last_idx + 1])[0]
+    print(f"room_tracking.yaml final_mesh_eval_rec.ply ({len(rec_v)} vertices, {len(rec_f)} faces) vs GT culled "
+          f"to all {slam.last_idx + 1} poses: {json.dumps(metrics)} (printed, no gate)")
+    if 100 * ate > ATE_GATE_CM:
+        fail(f"room_tracking.yaml: aligned ATE {100 * ate:.3f} cm above {ATE_GATE_CM} cm")
+
+
 def phase_determinism(torch, dev):
     """Frame 0's mapping of room_tracking.yaml (all 1000 iterations), twice
     with PyTorch's default kernels and twice under
@@ -573,7 +679,7 @@ def phase_determinism(torch, dev):
     from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 
     cfg = load_config(ROOM_TRACKING, default_config_path())
-    apply_overrides(cfg, [NO_LOOP_CLOSURE[1], NO_LOOP_CLOSURE[3], "tsdf.space=10"])
+    apply_overrides(cfg, ["tsdf.space=10"])
     cfg["seed"] = 0
     t0 = time.perf_counter()
     slam = SLAMSystem(cfg, output=tempfile.mkdtemp(prefix="chip_smoke_det_"), device=dev)
@@ -630,7 +736,7 @@ def phase_determinism(torch, dev):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="1,2,3,4,5,7",
-                    help="comma-separated phases to run (6 and 8 only on request)")
+                    help="comma-separated phases to run (6, 8 and 9 only on request)")
     args = ap.parse_args()
     phases = {int(x) for x in args.phases.split(",")}
     if 7 in phases and 4 not in phases:
@@ -681,8 +787,9 @@ def main() -> None:
         done(3)
     if 4 in phases:
         slam = drive("entry", phase_entry, torch, dev)
-        if paths["entry"]["halo_fold"] <= 0:
-            fail("the entry point launched no K1 (halo fold)")
+        if paths["entry"]["halo_fold"] <= 0 or paths["entry"]["decoder_mlp"] <= 0:
+            fail(f"the entry point launched K1 (halo fold) {paths['entry']['halo_fold']} times and K2 (decoder "
+                 f"MLP) {paths['entry']['decoder_mlp']} times (expected both > 0)")
         done(4)
         if 5 in phases:
             drive("render", phase_render, torch, dev, slam)
@@ -700,6 +807,9 @@ def main() -> None:
     if 8 in phases:
         drive("room_yaml", phase_room_yaml, torch, dev)
         done(8)
+    if 9 in phases:
+        drive("room_tracking", phase_room_tracking, torch, dev)
+        done(9)
     if 3 in phases:
         profile_cycles(torch, room0_cycles, room0)
         print(f"phase 3 profile: {time.perf_counter() - t_phase[0]:.1f} s")
