@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -43,7 +44,8 @@ def nvcc_path() -> str:
 
 class CudaKernel:
     """One hand-written kernel: its source, its loaded library and its
-    launch count (``launches`` grows by one per launch, in the wrapper)."""
+    launch count (``launches`` grows by one per launch, in the wrapper,
+    under a lock: the async modes launch from two threads)."""
 
     def __init__(self, name: str, source: str, bind: Callable[[ctypes.CDLL], None]):
         self.name = name
@@ -51,6 +53,8 @@ class CudaKernel:
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self.launches = 0
+        self.count_lock = threading.Lock()
+        self._lib_lock = threading.Lock()  # one build and load when two threads launch first
         self.build_log = ""
         self.build_s = 0.0
 
@@ -61,10 +65,12 @@ class CudaKernel:
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            build_all([self])
-            lib = ctypes.CDLL(self.lib_path())
-            self._bind(lib)
-            self._lib = lib
+            with self._lib_lock:
+                if self._lib is None:
+                    build_all([self])
+                    lib = ctypes.CDLL(self.lib_path())
+                    self._bind(lib)
+                    self._lib = lib
         return self._lib
 
 
@@ -112,4 +118,5 @@ def check_launch(kernel: CudaKernel, rc: int) -> None:
     """Raise if a launch returned a CUDA error; count it otherwise."""
     if rc != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with cudaError {rc}")
-    kernel.launches += 1
+    with kernel.count_lock:
+        kernel.launches += 1

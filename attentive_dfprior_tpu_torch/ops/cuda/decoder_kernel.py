@@ -16,6 +16,7 @@ into TF32 hi and lo parts, in wgmma's no-swizzle core-matrix layout.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Any, Dict, List, NamedTuple
 
 import torch
@@ -206,36 +207,57 @@ def pack_tc_weights(packed: PackedMLP) -> torch.Tensor:
     return flat
 
 
-TC_CACHE_SIZE = 8  # images held at once: a process runs three decoders
+# images held at once: a process runs three decoders, and in the async
+# modes the tracker's scene snapshot holds three more, so 2 x 3 = 6 are live
+TC_CACHE_SIZE = 8
 
 
 class _TcCache:
     """Weight images by decoder (a decoder tree or a ``PackedMLP``): an
     entry holds the decoder's leaf tensors (compared with ``is``) and each
     leaf's ``_version``, so an in-place update (the optimizer's ``copy_``)
-    or a replaced leaf (a checkpoint load) builds a new image."""
+    or a replaced leaf (a checkpoint load) builds a new image.
+
+    Thread-safe: ``get`` runs under one lock, the build included, so two
+    threads asking for one decoder build one image. An image is built on
+    the caller's current stream, and on CUDA an event is recorded there;
+    a caller on another stream waits for that event and records its stream
+    on the image, so the allocator does not reuse the image's memory while
+    that stream may still read it."""
 
     def __init__(self):
-        self.entries: List[tuple] = []  # (leaves, versions, image), newest last
+        self.entries: List[tuple] = []  # (leaves, versions, image, stream, event), newest last
         self.builds = 0
+        self._lock = threading.Lock()
 
     def get(self, weights) -> torch.Tensor:
         packed = isinstance(weights, PackedMLP)
         leaves = list(weights) if packed else tree_leaves(weights)
         versions = [t._version for t in leaves]
-        for i, (held, vers, image) in enumerate(self.entries):
-            if len(held) == len(leaves) and all(a is b for a, b in zip(held, leaves)):
-                if vers == versions:
-                    self.entries.append(self.entries.pop(i))
-                    return image
-                del self.entries[i]  # same decoder, older parameters
-                break
-        with torch.no_grad():
-            image = pack_tc_weights(weights if packed else pack_mlp_params(weights))
-        self.builds += 1
-        self.entries.append((leaves, versions, image))
-        del self.entries[:-TC_CACHE_SIZE]
-        return image
+        with self._lock:
+            for i, (held, vers, image, stream, event) in enumerate(self.entries):
+                if len(held) == len(leaves) and all(a is b for a, b in zip(held, leaves)):
+                    if vers == versions:
+                        self.entries.append(self.entries.pop(i))
+                        if event is not None:
+                            here = torch.cuda.current_stream(image.device)
+                            if here != stream:
+                                here.wait_event(event)
+                                image.record_stream(here)
+                        return image
+                    del self.entries[i]  # same decoder, older parameters
+                    break
+            with torch.no_grad():
+                image = pack_tc_weights(weights if packed else pack_mlp_params(weights))
+            stream = event = None
+            if image.is_cuda:
+                stream = torch.cuda.current_stream(image.device)
+                event = torch.cuda.Event()
+                event.record(stream)
+            self.builds += 1
+            self.entries.append((leaves, versions, image, stream, event))
+            del self.entries[:-TC_CACHE_SIZE]
+            return image
 
 
 TC_CACHE = _TcCache()  # the weight images of every decoder the process runs through K2

@@ -1,4 +1,4 @@
-"""Run strict-mode SLAM on a scene config — the port's counterpart of run.py.
+"""Run SLAM on a scene config — the port's counterpart of run.py.
 
 Usage:
     python -m attentive_dfprior_tpu_torch.run configs/Synthetic/room_tracking.yaml \\
@@ -12,7 +12,9 @@ from the latest checkpoint under ``<output>/ckpts`` (either package's).
 ``--adam-nonlazy`` steps every Adam leaf in every iteration: the JAX
 package's ``DFPRIOR_TRILINEAR_VJP`` and ``DFPRIOR_ADAM_LAZY=0``. ``--set``
 overrides config entries after loading (values parsed as YAML scalars),
-e.g. ``--set mapping.vis_freq=5``.
+e.g. ``--set mapping.vis_freq=5``; ``--set sync_method=loose`` (or
+``free``) runs the mapper on a worker thread of its own
+(``slam/system.py:_run_async``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def apply_overrides(cfg: Dict[str, Any], overrides: List[str]) -> None:
 
 def main(argv: Optional[List[str]] = None):
     """Parse ``argv``, run SLAM, and return the SLAMSystem after the run."""
-    parser = argparse.ArgumentParser(description="Strict-mode SLAM (PyTorch/CUDA port).")
+    parser = argparse.ArgumentParser(description="SLAM (PyTorch/CUDA port).")
     parser.add_argument("config", type=str, help="path to the scene config")
     parser.add_argument("--output", type=str, help="overrides the config's output path")
     parser.add_argument("--input_folder", type=str, help="overrides the config's input path")

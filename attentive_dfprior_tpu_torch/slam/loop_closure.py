@@ -24,6 +24,7 @@ detached, so it launches neither K1 nor K2.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, Optional
 
@@ -184,9 +185,12 @@ class LoopCloser:
         params: Any,
         generator: Optional[torch.Generator] = None,
         pixel_idx: Optional[Dict[int, torch.Tensor]] = None,
+        kf_lock=None,
     ) -> bool:
         """Revisit-gated keyframe relaxation (mechanism 1); returns whether
-        it ran. ``pixel_idx``: optional {keyframe slot: (iters, pixels)}."""
+        it ran. ``pixel_idx``: optional {keyframe slot: (iters, pixels)}.
+        ``kf_lock``: held around the keyframe poses' read and write (the
+        async modes' main thread reads them for its side outputs)."""
         if not self.enable or idx - self._last_relax < self.every:
             return False
         hit = self.detect_revisit(idx, depth_np, c2w)
@@ -194,8 +198,10 @@ class LoopCloser:
             return False
         self._last_relax = idx
         t0 = time.time()
-        K = len(self.keyframes)
-        old_poses = self.keyframes.poses_np().copy()
+        lock = kf_lock if kf_lock is not None else contextlib.nullcontext()
+        with lock:
+            K = len(self.keyframes)
+            old_poses = self.keyframes.poses_np().copy()
         new_poses = old_poses.copy()
         n_it = int(self.kf_iters) if self.kf_iters is not None else self.tracker.num_cam_iters
         max_rot = float(np.deg2rad(self.max_rot_deg))
@@ -210,8 +216,9 @@ class LoopCloser:
             new_poses[slot] = clamp_pose_update(old_poses[slot], ref, self.max_dt, max_rot)
             if not np.allclose(new_poses[slot], old_poses[slot]):
                 moved += 1
-        for slot in range(K):
-            self.keyframes.update_pose(slot, new_poses[slot])
+        with lock:
+            for slot in range(K):
+                self.keyframes.update_pose(slot, new_poses[slot])
         propagate_corrections(
             estimate_c2w_list, np.asarray(self.keyframes.frame_idx[:K]), old_poses, new_poses, idx
         )

@@ -1,12 +1,19 @@
 """SLAM system orchestrator: dataset, TSDF prior, scene state, tracker and
-mapper in the strict schedule.
+mapper in one of three schedules.
 
 The port of the JAX package's ``slam/system.py`` (ref:
 src/DF_Prior.py:23-311). ``sync_method: strict`` runs
 
     track(i) -> [map(i) if i % every_frame == 0 or i is last] -> track(i+1)
 
-with the scene handed to the tracker as an argument. Side outputs are the
+with the scene handed to the tracker as an argument. ``loose`` and ``free``
+run the reference's Tracker || Mapper concurrency (ref:
+src/DF_Prior.py:297-311) as the JAX package does: a mapper worker thread
+takes mapping jobs from a queue and publishes a scene snapshot after each
+mapped frame, and the main thread tracks on the latest snapshot. ``loose``
+keeps the tracker within ``every_frame + every_frame // 2`` frames of the
+last mapped frame; ``free`` never waits after frame 0's map. On the card
+each agent has its own CUDA stream (``_run_async``). Side outputs are the
 checkpoints, ``metrics.jsonl`` and the meshes (``mesh/<idx>_mesh.ply``
 every ``mesh_freq`` frames, ``mesh/final_mesh.ply`` and, with
 ``meshing.eval_rec``, ``mesh/final_mesh_eval_rec.ply`` at the last frame).
@@ -23,14 +30,17 @@ Visualizers write rendered-vs-input panels (``mapping_vis/``,
 ``tracking_vis/``). ``resume`` restores a checkpoint and ``run(start_idx)``
 continues from it.
 
-Not in this port yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): the async sync modes and ``parallel.enable``.
+Not in this port yet (raises ``NotImplementedError`` naming its ROADMAP.md
+item): ``parallel.enable``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import queue
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -52,7 +62,10 @@ from attentive_dfprior_tpu_torch.utils.device import resolve_device
 from attentive_dfprior_tpu_torch.utils.logger import Logger, load_checkpoint
 from attentive_dfprior_tpu_torch.utils.mesher import Mesher
 from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer
+from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
 from attentive_dfprior_tpu_torch.utils.visualizer import Visualizer
+
+SYNC_METHODS = ("strict", "loose", "free")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -62,8 +75,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def load_tsdf_volume(cfg: Dict[str, Any], args=None, device: torch.device = torch.device("cpu")):
-    """Load (or build) the TSDF prior volume and its bounds.
+def load_tsdf_volume(cfg: Dict[str, Any], args=None, device=None):
+    """Load (or build) the TSDF prior volume and its bounds, on ``device``
+    (the card by default; ``"cpu"`` on request, ``utils/device.py``).
 
     Sources, in order: the ``{dataset}_tsdf_volume/<id>_tsdf_volume.npz``
     cache written by the JAX package's get_tsdf CLI (used only when built at
@@ -75,6 +89,7 @@ def load_tsdf_volume(cfg: Dict[str, Any], args=None, device: torch.device = torc
         (X, Y, Z) bool mask: the cache's, else recovered from the values by
         ``legacy_observed_mask``, else the fusion weights).
     """
+    device = resolve_device(device)
     dataset = cfg["data"]["dataset"]
     scene_id = cfg["data"]["id"]
     base = f"{dataset}_tsdf_volume"
@@ -132,6 +147,15 @@ class SLAMSystem:
             ``DFPRIOR_TRILINEAR_VJP``).
         adam_lazy: Adam's per-leaf lazy rule; False is the JAX package's
             ``DFPRIOR_ADAM_LAZY=0``.
+
+    Pixel draws: the mapper (and loop closure's relaxation, which runs
+    after a mapped frame) draws from ``self.generator``. In strict mode the
+    tracker draws from it too, so one seed fixes the whole run. In the
+    async modes the two agents run on two threads and must not share a
+    generator: the tracker (and the final refine) draws from a generator of
+    its own seeded with ``seed + 2``, and the mapper's stream is the strict
+    run's. With ``tracking.gt_camera`` the tracker draws nothing, so the
+    map of an async run equals the strict run's bit for bit.
     """
 
     def __init__(
@@ -146,9 +170,9 @@ class SLAMSystem:
         grid_sampler(grid_vjp)  # an unknown name raises here, not mid-run
         self.device = resolve_device(device)
         self.cfg = cfg
-        sync = cfg.get("sync_method", "strict")
-        if sync != "strict":
-            raise _not_ported(f"sync_method {sync!r}", "'Async modes'")
+        self.sync_method = str(cfg.get("sync_method", "strict"))
+        if self.sync_method not in SYNC_METHODS:
+            raise ValueError(f"sync_method {self.sync_method!r} is not one of {SYNC_METHODS}")
         if bool(cfg.get("parallel", {}).get("enable", False)):
             raise _not_ported("parallel.enable", "'Sharding and multihost'")
 
@@ -173,11 +197,12 @@ class SLAMSystem:
         # --- scene state ---
         pretrained = resolve_pretrained(cfg)
         self.scene_cfg = SceneConfig.from_config(cfg, pretrained_loaded=pretrained is not None)
-        seed = int(cfg.get("seed", 0))
-        self.params = init_scene(torch.Generator().manual_seed(seed), self.scene_cfg, pretrained, self.device)
-        # pixel draws of the mapper and tracker (one stream: strict mode is
-        # sequential, so a seed fixes the whole run)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.seed = int(cfg.get("seed", 0))
+        self.params = init_scene(torch.Generator().manual_seed(self.seed), self.scene_cfg, pretrained, self.device)
+        # pixel draws (the class docstring): the mapper's, and in strict
+        # mode the tracker's; an async run sets the tracker's own
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self._track_generator: Optional[torch.Generator] = None
 
         r = cfg["rendering"]
         self.rcfg = RenderConfig(
@@ -243,21 +268,28 @@ class SLAMSystem:
 
         self.estimate_c2w_list = np.zeros((self.n_img, 4, 4), dtype=np.float32)
         self.gt_c2w_list = np.zeros((self.n_img, 4, 4), dtype=np.float32)
-        self._np_rng = np.random.default_rng(seed)
+        self._np_rng = np.random.default_rng(self.seed)
         # seconds (and rays) of the parts: track, map, loop, mesh
         self.profiler = PhaseTimer()
         self.last_idx: Optional[int] = None  # the last frame run() processed
         self._metrics_path = os.path.join(self.output, "metrics.jsonl")
+        self._log_lock = threading.Lock()
+        # the keyframe store and selected_keyframes against the side
+        # outputs' reads, when the mapper runs on the worker thread
+        self._kf_lock = threading.Lock()
 
     def _log_metrics(self, record: Dict[str, Any]) -> None:
         record.setdefault("t", round(time.time(), 4))
-        with open(self._metrics_path, "a") as f:
+        with self._log_lock, open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
     @property
     def timings(self) -> Dict[str, float]:
         """Seconds by part: tracking and mapping without their panels, loop
-        closure (relaxations and the final refine), panels, meshes."""
+        closure (relaxations and the final refine), panels, meshes. In the
+        async modes ``track`` and ``map`` (with the relaxations in
+        ``loop``) run on two threads at once, so their wall times overlap
+        and the parts may sum to more than the run's wall time."""
         s = self.profiler.seconds
         vt, vm = self.tracking_visualizer.seconds, self.visualizer.seconds
         return {
@@ -271,6 +303,22 @@ class SLAMSystem:
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
 
+    def _sync_stream(self) -> None:
+        """Wait until the calling thread's stream has done its work: the
+        hand-off points between the agents (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _keyframes_view(self, depths: bool = False):
+        """Copies of the keyframe store's host state, read under the
+        keyframe lock: (frame indices, estimated poses, GT poses,
+        selected_keyframes, and with ``depths`` the (K, H, W) depths)."""
+        with self._kf_lock:
+            K = len(self.keyframes)
+            kf_depths = self.keyframes.depth[:K].cpu().numpy() if depths else None
+            return (list(self.keyframes.frame_idx), self.keyframes.poses_np().copy(),
+                    np.array(self.keyframes.gt_c2w[:K]), dict(self.selected_keyframes), kf_depths)
+
     def _filled(self, observed: np.ndarray, mode: str) -> torch.Tensor:
         """The reference-faithful prior, or a copy with its unobserved
         voxels filled by ``mode``."""
@@ -281,19 +329,22 @@ class SLAMSystem:
 
     # ------------------------------------------------------------------
 
-    def get_mesh(self, mesh_out_file: str, idx: Optional[int] = None, get_mask_use_all_frames: bool = False):
-        """Mesh the current scene into ``mesh_out_file`` (PLY), as the side
-        outputs do: the mesh prior, the keyframes' depths and poses, and with
+    def get_mesh(
+        self, mesh_out_file: str, idx: Optional[int] = None, get_mask_use_all_frames: bool = False, params=None
+    ):
+        """Mesh a scene into ``mesh_out_file`` (PLY), as the side outputs
+        do: the mesh prior, the keyframes' depths and poses, and with
         ``get_mask_use_all_frames`` every estimated pose up to ``idx``
-        (default: the last frame run). Returns ``Mesher.get_mesh``'s
-        (verts, faces), or None when there is no surface."""
+        (default: the last frame run). ``params``: the scene (default: the
+        mapper's; the async modes pass the published snapshot). Returns
+        ``Mesher.get_mesh``'s (verts, faces), or None when there is no
+        surface."""
         idx = self.last_idx if idx is None else idx
-        K = len(self.keyframes)
+        _, kf_poses, _, _, kf_depths = self._keyframes_view(depths=True)
         with self.profiler.phase("mesh"):
             return self.mesher.get_mesh(
-                mesh_out_file, self.params, self.tsdf_volume_mesh, self.keyframes.depth[:K].cpu().numpy(),
-                self.keyframes.poses_np(), self.estimate_c2w_list, idx,
-                get_mask_use_all_frames=get_mask_use_all_frames,
+                mesh_out_file, self.params if params is None else params, self.tsdf_volume_mesh, kf_depths,
+                kf_poses, self.estimate_c2w_list, idx, get_mask_use_all_frames=get_mask_use_all_frames,
             )
 
     def resume(self, ckpt_path: str) -> int:
@@ -366,7 +417,8 @@ class SLAMSystem:
             for _ in range(outer):
                 f_color, f_depth, f_c2w, slots = self._select_window(color, depth, c2w, window_size)
                 if self.save_selected_keyframes_info:
-                    self.selected_keyframes[idx] = [{"est_c2w": f_c2w[i]} for i in range(len(f_c2w))]
+                    with self._kf_lock:
+                        self.selected_keyframes[idx] = [{"est_c2w": f_c2w[i]} for i in range(len(f_c2w))]
                 # BA gauge anchor: the window keyframe with the smallest frame index
                 if len(slots) > 0:
                     ba_anchor = int(np.argmin([self.keyframes.frame_idx[int(s)] for s in slots]))
@@ -388,19 +440,23 @@ class SLAMSystem:
                         [clamp_pose_update(f_c2w[w], refined_c2w[w], max_dt, max_rot)
                          for w in range(len(refined_c2w))]
                     )
-                    for w, sl in enumerate(slots):
-                        self.keyframes.update_pose(int(sl), clamped[w])
+                    with self._kf_lock:
+                        for w, sl in enumerate(slots):
+                            self.keyframes.update_pose(int(sl), clamped[w])
                     c2w = clamped[-1]
                     self.estimate_c2w_list[idx] = clamped[-1]
 
         # keyframe bookkeeping (ref: src/Mapper.py:560-565)
         if (idx % self.keyframe_every == 0 or idx == self.n_img - 2) and idx not in self.keyframes.frame_idx:
-            self.keyframes.add(idx, color, depth, c2w, gt_c2w)
+            with self._kf_lock:
+                self.keyframes.add(idx, color, depth, c2w, gt_c2w)
+                self._sync_stream()  # the store's device rows are written before a reader takes the lock
         # revisit-gated keyframe relaxation, on the keyframes including this one
         if self.loop_closer.enable:
             with self.profiler.phase("loop"):
                 self.loop_closer.maybe_relax(
-                    idx, np.asarray(depth), c2w, self.estimate_c2w_list, self.params, self.generator
+                    idx, np.asarray(depth), c2w, self.estimate_c2w_list, self.params, self.generator,
+                    kf_lock=self._kf_lock,
                 )
         if self.verbose:
             print(f"Mapping frame {idx}  losses={losses}")
@@ -409,12 +465,18 @@ class SLAMSystem:
              "n_keyframes": len(self.keyframes)}
         )
 
-    def _track_frame(self, idx, color, depth, gt_c2w):
+    @property
+    def track_generator(self) -> torch.Generator:
+        """The tracker's pixel draws: the async run's own, else the shared one."""
+        return self.generator if self._track_generator is None else self._track_generator
+
+    def _track_frame(self, idx, color, depth, gt_c2w, params=None):
         t = self.tracker
         with self.profiler.phase("track", rays=0 if t.gt_camera else t.tracking_pixels * t.num_cam_iters):
             c2w, loss = t.track(
-                self.params, idx, self._to_device(color), self._to_device(depth), gt_c2w,
-                self.estimate_c2w_list, generator=self.generator, visualizer=self.tracking_visualizer,
+                self.params if params is None else params, idx, self._to_device(color), self._to_device(depth),
+                gt_c2w, self.estimate_c2w_list, generator=self.track_generator,
+                visualizer=self.tracking_visualizer,
             )
         self.estimate_c2w_list[idx] = c2w
         if self.verbose:
@@ -424,14 +486,27 @@ class SLAMSystem:
     # ------------------------------------------------------------------
 
     def run(self, start_idx: int = 0, end_idx: Optional[int] = None) -> np.ndarray:
-        """Strict-mode SLAM loop over frames [start_idx, end_idx); returns
-        the estimated trajectory (n_img, 4, 4). ``start_idx`` > 0 continues
-        a run restored by ``resume``."""
+        """The SLAM loop over frames [start_idx, end_idx) in the configured
+        ``sync_method``; returns the estimated trajectory (n_img, 4, 4).
+        ``start_idx`` > 0 continues a run restored by ``resume``.
+
+        strict: mapping of frame i completes before tracking i+1, the
+        reference's serialized schedule. loose / free: ``_run_async``.
+        The profiler's ``run`` phase is the wall time of the call.
+        """
         n = self.n_img if end_idx is None else min(end_idx, self.n_img)
         stop_at = self.cfg["mapping"].get("stop_at_frame")
         if stop_at is not None:
             n = min(n, int(stop_at) + 1)
-        self.dataset.prefetch(range(start_idx, n))
+        with self.profiler.phase("run"):
+            self.dataset.prefetch(range(start_idx, n))
+            if self.sync_method == "strict":
+                self._run_strict(start_idx, n)
+            else:
+                self._run_async(start_idx, n, self.sync_method)
+        return self.estimate_c2w_list
+
+    def _run_strict(self, start_idx: int, n: int) -> None:
         for idx in range(start_idx, n):
             _, color, depth, gt_c2w = self.dataset[idx]
             self.gt_c2w_list[idx] = gt_c2w
@@ -453,27 +528,193 @@ class SLAMSystem:
                     )
             self.last_idx = idx
             self._side_outputs(idx, n)
-        return self.estimate_c2w_list
 
-    def _side_outputs(self, idx: int, n: int) -> None:
+    def _snapshot_for_tracker(self):
+        """An independent copy of the scene for the tracker: every leaf
+        detached and cloned, so the mapper's
+        in-place Adam steps never reach it and the tracker's reads never
+        touch the mapper's leaves or their ``.grad``. The calling thread's
+        stream is synchronized before it returns, so the copy is complete
+        when another thread reads it (the JAX package's
+        ``block_until_ready``)."""
+        snap = tree_map(lambda t: t.detach().clone(), self.params)
+        self._sync_stream()
+        return snap
+
+    def _run_async(self, start_idx: int, n: int, sync: str) -> None:
+        """loose / free: a mapper worker thread and published scene
+        snapshots (the JAX package's ``_run_async``, same protocol).
+
+        The main thread reads each frame, tracks it on the latest published
+        snapshot and queues a mapping job for every frame strict mode
+        maps; the worker maps, then publishes a fresh snapshot, or skips
+        the publish (``publish_skip``) while the tracker has not read the
+        last one and it is less than ``2 * every_frame`` frames old. Both
+        modes wait for frame 0's map; ``loose`` also waits until the last
+        mapped frame is at most ``every_frame + every_frame // 2`` frames
+        behind. At the last frame the main thread waits for its map,
+        publishes a snapshot of the final map if the worker skipped it, and
+        runs the final refine and the side outputs on it.
+
+        On the card the worker runs on a CUDA stream of its own, so the two
+        agents' kernels can overlap. The hand-offs are ordered: the worker
+        synchronizes its stream before it publishes a snapshot and before it
+        releases the keyframe lock after a write, and the main thread
+        records its stream on every snapshot leaf it reads, so the caching
+        allocator does not reuse a snapshot's memory while the tracker's
+        kernels may still read it. A worker exception is raised again in
+        the main thread.
+        """
+        cuda = self.device.type == "cuda"
+        map_stream = torch.cuda.Stream(self.device) if cuda else None
+        if cuda:
+            # the worker's first job reads what this thread wrote (the
+            # initial or resumed scene, the priors, the keyframe store)
+            map_stream.wait_stream(torch.cuda.current_stream(self.device))
+        jobs: "queue.Queue" = queue.Queue()
+        # the seed snapshot is a copy too: on resume the tracker starts from
+        # it while the first map job already updates self.params in place
+        state = {
+            "published": self._snapshot_for_tracker(),
+            # resume: everything before start_idx counts as mapped, so the
+            # loose staleness gate can make progress
+            "last_mapped": start_idx - 1,
+            "published_idx": start_idx - 1,
+            "consumed": True,  # has the tracker read the current snapshot?
+            "error": None,
+        }
+        pub_cv = threading.Condition()
+        self._track_generator = torch.Generator(device=self.device).manual_seed(self.seed + 2)
+
+        def mapper_worker():
+            try:
+                stream_ctx = torch.cuda.stream(map_stream) if cuda else contextlib.nullcontext()
+                with stream_ctx:
+                    while True:
+                        job = jobs.get()
+                        if job is None:
+                            return
+                        midx, mcolor, mdepth, mgt, first = job
+                        self._map_frame(midx, mcolor, mdepth, self.estimate_c2w_list[midx], mgt, first=first)
+                        self._sync_stream()  # the map job's work is done before anyone reads it
+                        # publish on demand: if the tracker never read the
+                        # last snapshot, keep it (one map staler) unless it
+                        # would fall 2 * every_frame frames behind
+                        with pub_cv:
+                            skip = not state["consumed"] and midx - state["published_idx"] < 2 * self.every_frame
+                            if skip:
+                                state["last_mapped"] = midx
+                                pub_cv.notify_all()
+                        if skip:
+                            self._log_metrics({"event": "publish_skip", "idx": int(midx)})
+                            continue
+                        t0 = time.time()
+                        snap = self._snapshot_for_tracker()
+                        publish_s = time.time() - t0
+                        with pub_cv:
+                            state["published"] = snap
+                            state["published_idx"] = midx
+                            state["consumed"] = False
+                            state["last_mapped"] = midx
+                            pub_cv.notify_all()
+                        self._log_metrics({"event": "publish", "idx": int(midx), "publish_s": round(publish_s, 4)})
+            except BaseException as e:  # surfaced in the main thread
+                with pub_cv:
+                    state["error"] = e
+                    pub_cv.notify_all()
+
+        worker = threading.Thread(target=mapper_worker, name="mapper", daemon=True)
+        worker.start()
+        # loose staleness bound (role of ref: src/Tracker.py:176-181)
+        max_lag = self.every_frame + self.every_frame // 2
+
+        def wait_until(cond):
+            with pub_cv:
+                while not cond() and state["error"] is None:
+                    pub_cv.wait(timeout=0.05)
+                if state["error"] is not None:
+                    raise state["error"]
+
+        def snapshot():
+            """The latest snapshot, marked read, its leaves recorded on
+            this thread's stream."""
+            with pub_cv:
+                if state["error"] is not None:
+                    raise state["error"]
+                state["consumed"] = True
+                snap = state["published"]
+            if cuda:
+                here = torch.cuda.current_stream(self.device)
+                for leaf in tree_leaves(snap):
+                    leaf.record_stream(here)
+            return snap
+
+        try:
+            for idx in range(start_idx, n):
+                _, color, depth, gt_c2w = self.dataset[idx]
+                self.gt_c2w_list[idx] = gt_c2w
+                if idx == 0:
+                    self.estimate_c2w_list[0] = gt_c2w
+                    jobs.put((0, color, depth, gt_c2w, True))
+                    # both modes wait for the first map before tracking
+                    # (ref: src/Tracker.py:277-281)
+                    wait_until(lambda: state["last_mapped"] >= 0)
+                else:
+                    if sync == "loose":
+                        wait_until(lambda: state["last_mapped"] >= idx - max_lag)
+                    self._track_frame(idx, color, depth, gt_c2w, params=snapshot())
+                    if not np.isfinite(gt_c2w).all():
+                        continue
+                    if idx % self.every_frame == 0 or idx == n - 1:
+                        jobs.put((idx, color, depth, gt_c2w, False))
+                        if idx == n - 1:  # the last frame: complete the map
+                            wait_until(lambda: state["last_mapped"] >= idx)
+                            with pub_cv:
+                                stale = state["published_idx"] < state["last_mapped"]
+                            if stale:
+                                # the worker skipped the last publish and is
+                                # idle (no job pending): snapshot the final map
+                                snap = self._snapshot_for_tracker()
+                                with pub_cv:
+                                    state["published"] = snap
+                                    state["published_idx"] = idx
+                                    state["consumed"] = False
+                if idx == n - 1 and self.loop_closer.final_refine_on:
+                    # the worker is idle here, so the published snapshot is final
+                    with self.profiler.phase("loop"):
+                        self.loop_closer.final_refine(
+                            self.dataset, self.estimate_c2w_list, snapshot(), start_idx, n, self.track_generator
+                        )
+                self.last_idx = idx
+                self._side_outputs(idx, n, params=snapshot())
+        finally:
+            jobs.put(None)
+            worker.join(timeout=600)
+            self._track_generator = None
+        if worker.is_alive():
+            raise RuntimeError("the mapper worker did not stop within 600 s")
+
+    def _side_outputs(self, idx: int, n: int, params=None) -> None:
         """Checkpoints every ckpt_freq frames and meshes every mesh_freq
         frames, both again at the last frame (ref: src/Mapper.py:574-602;
-        the JAX package's slam/system.py:827-893)."""
+        the JAX package's slam/system.py:827-893). ``params``: the scene to
+        write (default: the mapper's; the async modes pass the published
+        snapshot). The keyframes are read under the keyframe lock."""
         last = idx == n - 1
+        kf_idx, kf_poses, kf_gt, selected, _ = self._keyframes_view()
+        params = self.params if params is None else params
         if (idx % self.ckpt_freq == 0 and not (idx == 0 and self.no_log_on_first_frame)) or last:
-            K = len(self.keyframes)
             self.logger.log(
-                idx, self.params, self.estimate_c2w_list, self.gt_c2w_list,
-                list(self.keyframes.frame_idx), self.keyframes.poses_np(),
-                keyframe_gt_c2w=np.array(self.keyframes.gt_c2w[:K]),
-                selected_keyframes=self.selected_keyframes if self.save_selected_keyframes_info else None,
+                idx, params, self.estimate_c2w_list, self.gt_c2w_list, kf_idx, kf_poses,
+                keyframe_gt_c2w=kf_gt,
+                selected_keyframes=selected if self.save_selected_keyframes_info else None,
             )
-        if len(self.keyframes) == 0:
+        if not kf_idx:
             return
         mesh_dir = os.path.join(self.output, "mesh")
         if idx % self.mesh_freq == 0 and not (idx == 0 and self.no_mesh_on_first_frame):
-            self.get_mesh(os.path.join(mesh_dir, f"{idx:05d}_mesh.ply"), idx)
+            self.get_mesh(os.path.join(mesh_dir, f"{idx:05d}_mesh.ply"), idx, params=params)
         if last:
-            self.get_mesh(os.path.join(mesh_dir, "final_mesh.ply"), idx)
+            self.get_mesh(os.path.join(mesh_dir, "final_mesh.ply"), idx, params=params)
             if self.eval_rec:
-                self.get_mesh(os.path.join(mesh_dir, "final_mesh_eval_rec.ply"), idx, get_mask_use_all_frames=True)
+                self.get_mesh(os.path.join(mesh_dir, "final_mesh_eval_rec.ply"), idx, True, params=params)

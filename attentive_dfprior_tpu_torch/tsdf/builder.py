@@ -27,6 +27,7 @@ from attentive_dfprior_tpu_torch.camera import Camera
 from attentive_dfprior_tpu_torch.models.scene import load_bound
 from attentive_dfprior_tpu_torch.tsdf.fusion import TSDFVolume
 from attentive_dfprior_tpu_torch.utils.datasets import get_dataset
+from attentive_dfprior_tpu_torch.utils.device import resolve_device
 from attentive_dfprior_tpu_torch.utils.ply import write_ply
 
 
@@ -35,17 +36,18 @@ def build_tsdf_volume(
     args=None,
     space: int = 10,
     voxel_size: float = 4.0 / 256,
-    device: torch.device = torch.device("cpu"),
+    device=None,
     save_mesh_path: Optional[str] = None,
 ) -> Tuple[torch.Tensor, np.ndarray, TSDFVolume]:
-    """Fuse the dataset's depth stream into a TSDF volume on ``device``;
-    with ``save_mesh_path``, also write the volume's mesh there.
+    """Fuse the dataset's depth stream into a TSDF volume on ``device``
+    (the card by default; ``"cpu"`` on request); with ``save_mesh_path``,
+    also write the volume's mesh there.
 
     Returns:
         (tsdf (X, Y, Z) tensor, adjusted bounds (3, 2), volume object).
     """
     cam = Camera.from_config(cfg)
-    vol = TSDFVolume(load_bound(cfg), voxel_size=voxel_size, device=device)
+    vol = TSDFVolume(load_bound(cfg), voxel_size=voxel_size, device=resolve_device(device))
     frame_reader = get_dataset(cfg, args, cfg.get("scale", 1))
     K = cam.K.astype(np.float32)
     frame_reader.prefetch(range(0, len(frame_reader), space))
@@ -70,10 +72,11 @@ def save_tsdf_volume(
     args=None,
     space: int = 10,
     out_dir: Optional[str] = None,
-    device: torch.device = torch.device("cpu"),
+    device=None,
 ) -> str:
     """Build and save ``<out_dir>/<prefix>_tsdf_volume.npz`` (the JAX
-    package's layout, ref: get_tsdf.py:101-138) and its mesh; returns the
+    package's layout, ref: get_tsdf.py:101-138) and its mesh, fusing on
+    ``device`` (the card by default; ``"cpu"`` on request); returns the
     ``.npz`` path."""
     dataset = cfg["data"]["dataset"]
     scene_id = cfg["data"]["id"]
@@ -99,7 +102,6 @@ def save_tsdf_volume(
 
 def main(argv: Optional[List[str]] = None) -> str:
     from attentive_dfprior_tpu_torch.config import default_config_path, load_config
-    from attentive_dfprior_tpu_torch.utils.device import resolve_device
 
     parser = argparse.ArgumentParser(description="Build the TSDF prior volume of a scene (PyTorch/CUDA port).")
     parser.add_argument("config", type=str, help="path to the scene config")
@@ -111,7 +113,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     args = parser.parse_args(argv)
     cfg = load_config(args.config, default_config_path())
     space = args.space if args.space is not None else int(cfg.get("tsdf", {}).get("space", 10))
-    out = save_tsdf_volume(cfg, None, space=space, out_dir=args.output, device=resolve_device(args.device))
+    out = save_tsdf_volume(cfg, None, space=space, out_dir=args.output, device=args.device)
     print(f"Saved TSDF volume to {out}")
     return out
 

@@ -10,18 +10,23 @@ from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 
 class PhaseTimer:
-    """Accumulating wall-clock timer with ray accounting per phase."""
+    """Accumulating wall-clock timer with ray accounting per phase. Phases
+    may run on several threads at once (the async modes' tracker and
+    mapper); each adds its own wall time under a lock, so two phases that
+    overlap both count the overlap."""
 
     def __init__(self) -> None:
         self.seconds: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
         self.rays: Dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def phase(self, name: str, rays: int = 0) -> Iterator[None]:
@@ -29,9 +34,11 @@ class PhaseTimer:
         try:
             yield
         finally:
-            self.seconds[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-            self.rays[name] += rays
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.seconds[name] += dt
+                self.counts[name] += 1
+                self.rays[name] += rays
 
     def rays_per_s(self, name: str) -> float:
         s = self.seconds.get(name, 0.0)

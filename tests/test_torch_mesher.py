@@ -338,7 +338,9 @@ def test_slam_side_outputs_and_get_mesh(tmp_path):
     cfg["meshing"]["resolution"] = 20
     cfg["tsdf"]["fill_unobserved_train"] = "free"
     slam = SLAMSystem(cfg, output=str(tmp_path), device="cpu")
-    _, _, vol = build_tsdf_volume(cfg, space=int(cfg["tsdf"]["space"]), voxel_size=cfg["tsdf"]["voxel_size"])
+    _, _, vol = build_tsdf_volume(
+        cfg, space=int(cfg["tsdf"]["space"]), voxel_size=cfg["tsdf"]["voxel_size"], device="cpu"
+    )
     observed = vol.observed_mask()
     assert observed.any() and not observed.all()
     np.testing.assert_array_equal(slam.tsdf_volume_track.numpy(), vol.device_volume().numpy())
@@ -373,7 +375,7 @@ def test_tsdf_builder_cli_writes_a_prior_the_system_loads(tmp_path, monkeypatch)
     cfg = tiny_room_cfg()
     cfg["tsdf"]["voxel_size"] = float(data["voxel_size"])
     monkeypatch.chdir(tmp_path)  # where SLAMSystem looks for <dataset>_tsdf_volume/
-    vol, bnds, observed = load_tsdf_volume(cfg)
+    vol, bnds, observed = load_tsdf_volume(cfg, device="cpu")
     np.testing.assert_array_equal(vol.numpy(), data["tsdf"])
     np.testing.assert_array_equal(observed, data["observed"])
     np.testing.assert_array_equal(bnds, data["bounds"])

@@ -287,19 +287,21 @@ def test_checkpoint_written_by_jax_loads_into_port(tmp_path):
 
 
 def test_entry_points_refuse_missing_cuda_and_unported_modes(tmp_path):
-    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
     from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
     from attentive_dfprior_tpu_torch.utils.device import resolve_device
+    from test_torch_slam import tiny_room_cfg
 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
-    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                                   "configs", "Synthetic", "room_tracking.yaml"), default_config_path())
-    # loop closure is ported (tests/test_torch_loop_closure.py); the async
-    # modes and sharding still raise, before any data is read
-    for key, value, item in (("sync_method", "loose", "Async"), ("parallel", {"enable": True}, "Sharding")):
-        bad = dict(cfg, **{key: value})
-        with pytest.raises(NotImplementedError, match=item):
-            SLAMSystem(bad, output=str(tmp_path), device="cpu")
+    cfg = tiny_room_cfg()
+    # the async modes construct (tests/test_torch_async.py runs them); an
+    # unknown sync_method and sharding raise, before any data is read
+    for sync in ("loose", "free"):
+        slam = SLAMSystem(dict(cfg, sync_method=sync), output=str(tmp_path / sync), device="cpu")
+        assert slam.sync_method == sync and slam.device.type == "cpu"
+    with pytest.raises(ValueError, match="sync_method"):
+        SLAMSystem(dict(cfg, sync_method="eager"), output=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="Sharding"):
+        SLAMSystem(dict(cfg, parallel={"enable": True}), output=str(tmp_path), device="cpu")
