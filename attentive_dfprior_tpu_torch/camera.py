@@ -64,3 +64,11 @@ class Camera:
             cx -= edge
             cy -= edge
         return Camera(H=H, W=W, fx=fx, fy=fy, cx=cx, cy=cy)
+
+
+def as_intrinsics_matrix(intrinsics) -> np.ndarray:
+    """[fx, fy, cx, cy] -> 3x3 K (ref: src/common.py:8-18)."""
+    K = np.eye(3)
+    K[0, 0], K[1, 1] = intrinsics[0], intrinsics[1]
+    K[0, 2], K[1, 2] = intrinsics[2], intrinsics[3]
+    return K

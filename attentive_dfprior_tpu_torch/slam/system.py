@@ -87,7 +87,8 @@ def load_tsdf_volume(cfg: Dict[str, Any], args=None, device=None):
     Returns:
         (tsdf (X, Y, Z) tensor on ``device``, bounds (3, 2) numpy, observed
         (X, Y, Z) bool mask: the cache's, else recovered from the values by
-        ``legacy_observed_mask``, else the fusion weights).
+        ``legacy_observed_mask``, else the fusion weights; source: the path
+        of the file read, or ``"fused"``).
     """
     device = resolve_device(device)
     dataset = cfg["data"]["dataset"]
@@ -104,7 +105,7 @@ def load_tsdf_volume(cfg: Dict[str, Any], args=None, device=None):
             print(f"TSDF prior: loaded cache {npz_path} (shape {data['tsdf'].shape})")
             tsdf = np.asarray(data["tsdf"], dtype=np.float32)
             observed = np.asarray(data["observed"]) if "observed" in data else legacy_observed_mask(tsdf)
-            return torch.as_tensor(tsdf, device=device), np.asarray(data["bounds"]), observed
+            return torch.as_tensor(tsdf, device=device), np.asarray(data["bounds"]), observed, npz_path
         print(f"TSDF cache {npz_path} voxel_size {cached_voxel} != configured {cfg_voxel}; rebuilding")
     if os.path.exists(pt_path):
         vol = torch.load(pt_path, map_location="cpu")
@@ -112,14 +113,14 @@ def load_tsdf_volume(cfg: Dict[str, Any], args=None, device=None):
         vol = vol[0, 0].permute(2, 1, 0).contiguous().float()
         bnds = torch.load(os.path.join(base, f"{prefix}_bounds.pt"), map_location="cpu")
         # the reference saves no weights: recover the mask from the values
-        return vol.to(device), np.asarray(bnds), legacy_observed_mask(vol.numpy())
+        return vol.to(device), np.asarray(bnds), legacy_observed_mask(vol.numpy()), pt_path
 
     from attentive_dfprior_tpu_torch.tsdf.builder import build_tsdf_volume
 
     space = int(cfg.get("tsdf", {}).get("space", 10))
     print(f"TSDF prior: fusing on the fly (voxel {cfg_voxel}, every {space} frames)")
     tsdf, bounds, vol = build_tsdf_volume(cfg, args, space=space, voxel_size=cfg_voxel, device=device)
-    return tsdf, bounds, vol.observed_mask()
+    return tsdf, bounds, vol.observed_mask(), "fused"
 
 
 def resolve_pretrained(cfg: Dict[str, Any]) -> Optional[str]:
@@ -185,7 +186,7 @@ class SLAMSystem:
         # --- data + prior ---
         self.dataset = get_dataset(cfg, args, self.scale)
         self.n_img = len(self.dataset)
-        self.tsdf_volume, tsdf_bnds, observed = load_tsdf_volume(cfg, args, self.device)
+        self.tsdf_volume, tsdf_bnds, observed, self.tsdf_source = load_tsdf_volume(cfg, args, self.device)
         self.tsdf_bnds = np.asarray(tsdf_bnds, dtype=np.float32)
         # the three priors (module docstring); the fills default as in
         # configs/df_prior.yaml

@@ -6,12 +6,14 @@ volume, its bounds, its observedness mask and a marching-cubes mesh
 (ref: get_tsdf.py:44-138).
 
 Usage (the port's counterpart of ``get_tsdf.py``):
-    python -m attentive_dfprior_tpu_torch.tsdf.builder configs/Synthetic/room.yaml \\
-        [--space N] [--output DIR] [--device cuda|cpu]
+    python -m attentive_dfprior_tpu_torch.tsdf.builder configs/Replica/room0.yaml \\
+        [--input_folder F] [--space N] [--output DIR] [--device cuda|cpu]
 
 writes ``DIR/<id>_tsdf_volume.npz`` and ``DIR/<id>_mesh.ply``; ``DIR``
 defaults to ``<dataset>_tsdf_volume``, where ``SLAMSystem`` looks for a
-cached prior. Runs on the card unless ``--device cpu`` is given.
+cached prior. ``--input_folder`` overrides the config's
+``data.input_folder`` (a dataset moved elsewhere). Runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ def main(argv: Optional[List[str]] = None) -> str:
 
     parser = argparse.ArgumentParser(description="Build the TSDF prior volume of a scene (PyTorch/CUDA port).")
     parser.add_argument("config", type=str, help="path to the scene config")
+    parser.add_argument("--input_folder", type=str, help="overrides the config's input path")
     parser.add_argument("--output", type=str, default=None,
                         help="directory for the volume and mesh (default: <dataset>_tsdf_volume)")
     parser.add_argument("--space", type=int, default=None,
@@ -113,7 +116,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     args = parser.parse_args(argv)
     cfg = load_config(args.config, default_config_path())
     space = args.space if args.space is not None else int(cfg.get("tsdf", {}).get("space", 10))
-    out = save_tsdf_volume(cfg, None, space=space, out_dir=args.output, device=args.device)
+    out = save_tsdf_volume(cfg, args, space=space, out_dir=args.output, device=args.device)
     print(f"Saved TSDF volume to {out}")
     return out
 

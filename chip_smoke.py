@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-5, 7 and 10, one card
+    python3 chip_smoke.py                # phases 1-5, 7, 10, 12 and 13, one card
     python3 chip_smoke.py --phases 1,2   # build + kernel checks only
     python3 chip_smoke.py --phases 1,8   # the room.yaml quality run
     python3 chip_smoke.py --phases 1,9   # the room_tracking.yaml quality run
     python3 chip_smoke.py --phases 1,10  # the async modes alone
     python3 chip_smoke.py --phases 1,11  # room_tracking.yaml whole under loose
+    python3 chip_smoke.py --phases 1,12,13  # the file-backed loaders and the tools
+    python3 chip_smoke.py --phases 1,14  # the full decoder pretrain and its prior's gates
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
@@ -59,16 +61,51 @@ Phases (each failure exits non-zero):
      checkpoints' scene leaves must be ``torch.equal`` (a missing stream
      synchronization between the mapper's stream and the tracker's shows
      here); (b) ``sync_method=loose`` through the entry point on frames
-     0..15 exactly as phase 4 runs it: events by kind, publishes, loop
-     closure records, ATE, wall seconds and the median interval between
-     tracked frames beside phase 4's strict run; gates as phase 4's (the
+     0..15 as phase 4 runs it, the final refine cut to 20 iterations a
+     frame: events by kind, publishes, loop closure records, ATE, wall
+     seconds, ``run()`` seconds without loop closure and the median interval
+     between tracked frames beside phase 4's strict run; gates as phase 4's (the
      unaligned ATE, a ``loop_relax`` and a ``loop_final_refine``, the
      panels) plus every frame strict maps mapped and K1 and K2 launched;
  11. (only on request) the whole room_tracking.yaml under ``loose``, as
-     phase 9 runs it: aligned ATE and seconds by part (printed, no gate).
+     phase 9 runs it: aligned ATE and seconds by part (printed, no gate);
+ 12. configs/Replica/room0.yaml through the file-backed entry point at its
+     full width: in a fresh working directory (links to the repo's
+     ``configs/`` and ``pretrained/``, no prior cache), a Replica-layout
+     fixture of frames 0..15 of room_tracking.yaml's trajectory rendered at
+     room0's 680x1200 camera (``results/frame*.jpg`` written with OpenCV,
+     ``results/depth*.png`` uint16 depth x 6553.5, ``traj.txt`` OpenCV
+     c2w), read back through ``Replica`` (depth and poses exact, colour mean
+     abs error at most 2/255); the TSDF builder's CLI with
+     ``--input_folder`` (room0's prior, voxel 4/256 m, every frame); then
+     ``attentive_dfprior_tpu_torch.run`` with ``--input_folder``, panels
+     every 5th frame: tracks 1-15, maps 0, 5, 10 and 15. Fails on a
+     non-finite loss, another mapping schedule, a prior not loaded from the
+     builder's cache, no K1 or K2 launch, or unaligned ATE above 10 cm;
+     prints aligned ATE, seconds by part, peak device memory and the mesh's
+     accuracy / completion / ratio against the synthetic GT;
+ 13. the loaders and tools: (a) a ScanNet-layout fixture of 3 frames at
+     configs/ScanNet/scene0000.yaml's 480x640 camera read back through
+     ``ScanNet`` (460x620 after ``crop_edge`` 10, depth and poses exact);
+     (b) ``tools/pretrain_decoders.py`` at its shipped widths for 500 steps
+     (finite losses, the last below the first, two K1 launches a step, the
+     ``.npz`` through ``load_pretrained_npz``); (c) ``tools/evaluate_scannet.py``
+     ``refuse`` on the card: the synthetic GT mesh re-fused along phase 12's
+     poses against the GT surface those poses see (recall at least 0.95,
+     completion at most 1 cm; accuracy, precision and F-score printed, as
+     the JAX package's face rule keeps faces at the frusta's sides, ROADMAP
+     F10), and phase 12's mesh re-fused and scored (printed); (d)
+     ``tools/convert_reference_ckpt.py`` on a reference-layout ``.tar`` of
+     phase 12's scene, loaded back through ``load_checkpoint`` leaf for leaf;
+ 14. (only on request) ``tools/pretrain_decoders.py`` whole (6000 steps),
+     then the contract of tests/test_pretrained_prior.py on the card: p99
+     |occ| under 1.9 with every feature channel kicked by +-0.5, and the
+     first-frame low-stage loss at lr 0.5 below half within 80 iterations
+     and off the near-plane plateau.
 
-Every path (each timed variant of phase 3, phases 4, 5, 7, 8, 9, 10 and 11,
-and each of phase 10(a)'s three runs, counted in its child process) runs with
+Every path (each timed variant of phase 3, phases 4, 5, 7, 8, 9, 10, 11, 12,
+13(b) and 14, and each of phase 10(a)'s three runs, counted in its child
+process) runs with
 the launch counts set to 0 just before it and read just after; the
 ``kernels`` JSON line reports each kernel's launches over those paths with
 its error, time, plain time and bound. The last line is the contract's
@@ -102,7 +139,14 @@ PANELS_EVERY_5 = ["--set", "mapping.vis_freq=5", "--set", "tracking.vis_freq=5"]
 ATE_GATE_CM = 4.5  # phase 9, aligned: between the JAX package's 2.871 cm with loop closure and 5.82 without (TPU)
 ASYNC_EQUAL_END = 11  # phase 10(a) runs frames 0..10: maps 0, 5 and 10
 ASYNC_EQUAL_SET = ["tracking.gt_camera=True", "mapping.iters_first=200", "tsdf.space=10"]
+LOOSE_REFINE_ITERS = 20  # phase 10(b)'s final refine, cut from 100 to keep the default run near 800 s
 CHILD_TAG = "ASYNC_EQUAL "  # the prefix of phase 10(a)'s result line in the child's output
+REPLICA_ROOM0 = os.path.join("configs", "Replica", "room0.yaml")  # from a working directory linking configs/
+SCANNET_SCENE = os.path.join("configs", "ScanNet", "scene0000.yaml")
+REPLICA_END = 16  # phase 12: frames 0..15, mapped at 0, 5, 10 and 15 (every_frame 5, last frame)
+COLOR_MEAN_GATE = 2.0 / 255  # phase 12-13: JPEG at OpenCV's default quality 95
+PRETRAIN_STEPS = 500  # phase 13(b): 500 of the tool's 6000
+REFUSE_RECALL_GATE, REFUSE_COMP_GATE = 0.95, 0.01  # phase 13(c): the GT re-fused covers what the poses see
 
 
 def fail(msg: str) -> None:
@@ -176,10 +220,11 @@ def phase_kernels(torch, dev):
 
     # ---- K1: bit-identical to the plain fold ----
     # odd shapes; room_tracking's low / high / high+color pair grids (the
-    # entry point's path); room0's low, high and pair grids (the cycle's)
+    # entry point's path); room0's low, high and pair grids (the cycle's and
+    # phase 12's); the pretrain's low and high grids (phase 13(b), 14)
     k1 = {"max_abs_err": 0.0}
     shapes = [(9, 5, 7, 3), (33, 6, 5, 4), (14, 11, 14, 32), (28, 22, 28, 32), (28, 22, 28, 64),
-              (37, 28, 22, 32), (74, 56, 44, 32), (74, 56, 44, 64)]
+              (37, 28, 22, 32), (74, 56, 44, 32), (74, 56, 44, 64), (12, 12, 12, 32), (24, 24, 24, 32)]
     for shape in shapes:
         nx, ny, nz, C = shape
         cells = torch.randn((nx * ny * nz, 8 * C), generator=g, device=dev)
@@ -420,8 +465,8 @@ def phase_room0(torch, dev, kernels):
 
 
 def profile_cycles(torch, cycles, results) -> None:
-    """One profiled halo cycle (about two minutes; the pallas cycle's device
-    time has matched halo's within 1 % in every run that profiled both),
+    """One profiled halo cycle (the pallas cycle's device time has matched
+    halo's within 1 % in every run that profiled both),
     then one halo cycle timed again: how much the profiler slows what runs
     after it."""
     profile_cycle(torch, cycles["halo"], results["halo"]["cycle_s"], "halo")
@@ -432,15 +477,19 @@ def profile_cycles(torch, cycles, results) -> None:
 
 
 def profile_cycle(torch, cycle, cycle_s: float, label: str) -> None:
-    """One more cycle under torch.profiler: the device's busy share of the
-    unprofiled cycle time, the number of device kernels, and the kernels
-    that take the most device time."""
+    """One more cycle under torch.profiler, tracing the device alone (the
+    host's operators, which the profile does not read, took it from about
+    two minutes to one): the device's busy share of the unprofiled cycle
+    time, the number of device kernels, and the kernels that take the most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cycle()
     dev = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
+    print(f"room0 profile ({label}): {time.perf_counter() - t0:.1f} s to trace and sum the cycle")
     busy_s = sum(a.self_device_time_total for a in dev) / 1e6
     if busy_s <= 0:
         print(f"room0 profile ({label}): the profiler recorded no device time (not measured)")
@@ -452,16 +501,17 @@ def profile_cycle(torch, cycle, cycle_s: float, label: str) -> None:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms  {a.count:6d} x  {a.key[:90]}")
 
 
-def expected_panels(cfg, start: int, n: int):
+def expected_panels(cfg, start: int, n: int, n_img: int):
     """Panels per directory that the Visualizers' gates give for frames
-    [start, n) of a run whose config is ``cfg``."""
+    [start, n) of a run whose config is ``cfg`` on a dataset of ``n_img``
+    frames."""
     m, t = cfg["mapping"], cfg["tracking"]
     mapping = 0
     for i in range(start, n):
         if not (i == 0 or i % m["every_frame"] == 0 or i == n - 1):
             continue
         first = i == 0
-        color_refine = not first and i == cfg["data"]["n_frames"] - 1 and m.get("color_refine", True)
+        color_refine = not first and i == n_img - 1 and m.get("color_refine", True)
         if color_refine or (first and m.get("no_vis_on_first_frame", True)) or i % m["vis_freq"]:
             continue
         mapping += len(range(0, m["iters_first"] if first else m["iters"], m["vis_inside_freq"]))
@@ -473,7 +523,7 @@ def expected_panels(cfg, start: int, n: int):
 
 def check_panels(slam, start: int, n: int, label: str) -> None:
     got = {d: len(os.listdir(os.path.join(slam.output, d))) for d in ("mapping_vis", "tracking_vis")}
-    want = expected_panels(slam.cfg, start, n)
+    want = expected_panels(slam.cfg, start, n, slam.n_img)
     print(f"{label}: panels per directory {json.dumps(got)}, the gates give {json.dumps(want)}")
     if got != want:
         fail(f"{label}: panel counts {got} differ from the gates' {want}")
@@ -566,7 +616,7 @@ def phase_entry(torch, dev):
           f"records {json.dumps([r for r in new if r['event'].startswith('loop_')])}")
     if tracked != [ENTRY_END, ENTRY_END + 1] or not os.path.exists(ckpt) or resumed.last_idx != ENTRY_END + 1:
         fail(f"resume: expected frames {ENTRY_END}-{ENTRY_END + 1} and {os.path.basename(ckpt)}")
-    return slam, {"wall_s": wall, "run_s": slam.profiler.seconds["run"],
+    return slam, {"wall_s": wall, "run_s": slam.profiler.seconds["run"], "loop_s": slam.timings["loop"],
                   "track_interval_median_s": track_interval_median(records)}
 
 
@@ -645,15 +695,18 @@ def phase_async_equal(paths) -> None:
 
 def phase_entry_loose(torch, dev, strict):
     """Phase 10(b): ``sync_method=loose`` through the entry point on frames
-    0..15 as phase 4 runs them (loop closure on, panels every 5th frame);
-    ``strict``: phase 4's {wall_s, run_s, track_interval_median_s}, or
-    None. Phase 4 renders the dataset's frames first, so the two runs'
-    set-ups differ: compare their ``run()`` seconds."""
+    0..15 as phase 4 runs them (loop closure on, panels every 5th frame),
+    but with the final refine cut to LOOSE_REFINE_ITERS iterations a frame;
+    ``strict``: phase 4's {wall_s, run_s, loop_s, track_interval_median_s},
+    or None. Phase 4 renders the dataset's frames first, so the two runs'
+    set-ups differ, and the refines differ in depth: compare their
+    ``run()`` seconds without loop closure."""
     from attentive_dfprior_tpu_torch import run as run_mod
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_loose_")
     argv = [ROOM_TRACKING, "--output", out_dir, "--device", "cuda", *PANELS_EVERY_5,
-            "--set", "sync_method=loose", "--end_idx", str(ENTRY_END)]
+            "--set", "sync_method=loose", "--set", f"loop_closure.refine_iters={LOOSE_REFINE_ITERS}",
+            "--end_idx", str(ENTRY_END)]
     os.chdir(REPO)
     t0 = time.perf_counter()
     slam = run_mod.main(argv)
@@ -670,10 +723,12 @@ def phase_entry_loose(torch, dev, strict):
             print(f"loose {r['event']} frame {r['idx']}" + (f": losses {json.dumps(r['losses'])}" if r["event"] == "map" else ""))
     _, _, err = report_run(slam, out_dir, wall, "loose", records)
     median = track_interval_median(records)
-    run_s = slam.profiler.seconds["run"]
-    print(f"loose: {wall:.1f} s ({run_s:.1f} s in run()), median track interval {median:.4f} s; strict (phase 4, "
-          "same frames): " + (f"{strict['wall_s']:.1f} s ({strict['run_s']:.1f} s in run()), "
-                              f"{strict['track_interval_median_s']:.4f} s" if strict else "not run"))
+    run_s, loop_s = slam.profiler.seconds["run"], slam.timings["loop"]
+    print(f"loose (refine {LOOSE_REFINE_ITERS} iterations a frame): {wall:.1f} s ({run_s:.1f} s in run(), "
+          f"{run_s - loop_s:.1f} s without loop closure), median track interval {median:.4f} s; strict (phase 4, "
+          "same frames, refine as configured): " + (
+              f"{strict['wall_s']:.1f} s ({strict['run_s']:.1f} s in run(), {strict['run_s'] - strict['loop_s']:.1f} "
+              f"s without loop closure), {strict['track_interval_median_s']:.4f} s" if strict else "not run"))
     if float(np.sqrt(np.mean(err**2))) > 0.10:
         fail("loose: unaligned ATE above 10 cm")
     if "loop_relax" not in events or "loop_final_refine" not in events:
@@ -896,10 +951,401 @@ def phase_determinism(torch, dev):
             print(f"determinism {mode}: warning: {msg}")
 
 
+def fresh_workdir(prefix: str, configs_dir: str) -> str:
+    """A new working directory holding links to ``configs_dir`` (as
+    ``configs/``) and the repo's ``pretrained/``: the configs' relative
+    paths resolve as in the repo, and no ``<dataset>_tsdf_volume`` cache of
+    another run is there."""
+    work = tempfile.mkdtemp(prefix=prefix)
+    os.symlink(configs_dir, os.path.join(work, "configs"))
+    os.symlink(os.path.join(REPO, "pretrained"), os.path.join(work, "pretrained"))
+    return work
+
+
+def render_fixture_frames(cam_cfg, n: int):
+    """Frames 0..n-1 of room_tracking.yaml's trajectory (the pose at i/119
+    on its 40-degree arc) rendered by the synthetic scene at camera
+    ``cam_cfg``: [(c2w OpenGL float32, color (H, W, 3), depth (H, W))]."""
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.utils.datasets import FRAME_CACHE
+    from attentive_dfprior_tpu_torch.utils.synthetic import SyntheticScene
+
+    track = load_config(ROOM_TRACKING, default_config_path())
+    n_traj = int(track["data"]["n_frames"])
+    scene = SyntheticScene.from_config({"cam": cam_cfg, "data": track["data"]})
+    poses = {i: scene.pose_at(i / (n_traj - 1)) for i in range(n)}
+    FRAME_CACHE.render_many(scene, n_traj, poses)
+    return [(poses[i], *FRAME_CACHE.render(scene, n_traj, i, poses[i])) for i in range(n)]
+
+
+def _encode_frame(color, depth, depth_scale):
+    """(BGR uint8 colour, uint16 depth x depth_scale) of a rendered frame."""
+    import cv2
+
+    if float(depth.max()) * depth_scale > 65535:
+        fail(f"fixture depth {float(depth.max()):.3f} m does not fit uint16 at scale {depth_scale}")
+    bgr = cv2.cvtColor(np.round(color * 255).astype(np.uint8), cv2.COLOR_RGB2BGR)
+    return bgr, np.round(depth * depth_scale).astype(np.uint16)
+
+
+def _opencv_pose(c2w):
+    cv = np.asarray(c2w, dtype=np.float64).copy()
+    cv[:3, 1] *= -1
+    cv[:3, 2] *= -1
+    return cv
+
+
+def write_replica_fixture(folder: str, frames, depth_scale: float):
+    """``results/frame%06d.jpg``, ``results/depth%06d.png`` and ``traj.txt``
+    (one OpenCV c2w per line, 16 numbers); returns the uint16 depths."""
+    import cv2
+
+    res = os.path.join(folder, "results")
+    os.makedirs(res)
+    depths, lines = [], []
+    for i, (c2w, color, depth) in enumerate(frames):
+        bgr, d16 = _encode_frame(color, depth, depth_scale)
+        cv2.imwrite(os.path.join(res, f"frame{i:06d}.jpg"), bgr)
+        cv2.imwrite(os.path.join(res, f"depth{i:06d}.png"), d16)
+        depths.append(d16)
+        lines.append(" ".join(f"{v:.17g}" for v in _opencv_pose(c2w).reshape(-1)))
+    with open(os.path.join(folder, "traj.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return depths
+
+
+def write_scannet_fixture(folder: str, frames, depth_scale: float):
+    """``frames/color/N.jpg``, ``frames/depth/N.png`` (depth x depth_scale)
+    and ``frames/pose/N.txt`` (4 rows, OpenCV c2w); returns the depths."""
+    import cv2
+
+    base = os.path.join(folder, "frames")
+    for sub in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(base, sub))
+    depths = []
+    for i, (c2w, color, depth) in enumerate(frames):
+        bgr, d16 = _encode_frame(color, depth, depth_scale)
+        cv2.imwrite(os.path.join(base, "color", f"{i}.jpg"), bgr)
+        cv2.imwrite(os.path.join(base, "depth", f"{i}.png"), d16)
+        depths.append(d16)
+        with open(os.path.join(base, "pose", f"{i}.txt"), "w") as f:
+            f.write("".join(" ".join(f"{v:.17g}" for v in row) + "\n" for row in _opencv_pose(c2w)))
+    return depths
+
+
+def check_read_back(label: str, ds, frames, depths16, depth_scale: float, edge: int) -> None:
+    """Every frame of ``ds`` against what was written: depth (uint16 /
+    scale, cropped by ``edge``) and pose equal, colour within
+    COLOR_MEAN_GATE mean abs error of the render."""
+    crop = slice(edge, -edge) if edge else slice(None)
+    if len(ds) != len(frames):
+        fail(f"{label}: the loader found {len(ds)} frames, {len(frames)} were written")
+    errs = []
+    t0 = time.perf_counter()
+    for i, (c2w, color, _) in enumerate(frames):
+        _, c, d, pose = ds[i]
+        if not np.array_equal(d, (depths16[i].astype(np.float32) / depth_scale)[crop, crop]):
+            fail(f"{label}: frame {i}'s depth differs from what was written")
+        if not np.array_equal(pose, np.asarray(c2w, np.float32)):
+            fail(f"{label}: frame {i}'s pose differs from what was written")
+        errs.append(np.abs(c - color[crop, crop]))
+    read_s = (time.perf_counter() - t0) / len(frames)
+    mean = float(np.mean([e.mean() for e in errs]))
+    print(f"{label} read-back: {len(frames)} frames of {tuple(d.shape)}, depth and poses equal; colour mean abs "
+          f"error {mean:.6f} ({255 * mean:.3f}/255, gate {255 * COLOR_MEAN_GATE:.0f}/255), max "
+          f"{max(float(e.max()) for e in errs):.4f}; {read_s:.4f} s per frame read (JPEG + PNG + conversions)")
+    if mean > COLOR_MEAN_GATE:
+        fail(f"{label}: colour mean abs error {mean:.6f} above {COLOR_MEAN_GATE:.6f}")
+
+
+def phase_replica(torch, dev, configs_dir: str):
+    """Phase 12: room0.yaml on a Replica-layout fixture through the builder
+    CLI and the entry point, both with ``--input_folder``. Returns
+    {"slam", "out_dir"}."""
+    import argparse
+
+    import cv2
+
+    from attentive_dfprior_tpu_torch import run as run_mod
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.tsdf import builder
+    from attentive_dfprior_tpu_torch.utils.datasets import get_dataset
+    from attentive_dfprior_tpu_torch.utils.ply import read_ply
+
+    work = fresh_workdir("chip_smoke_replica_", configs_dir)
+    os.chdir(work)
+    cfg = load_config(REPLICA_ROOM0, default_config_path())
+    cam, scale = cfg["cam"], float(cfg["cam"]["png_depth_scale"])
+    print(f"image codec: OpenCV {cv2.__version__} (cv2.imwrite / cv2.imread)")
+    fixture = os.path.join(work, "fixture_room0")  # not the config's data.input_folder
+    t0 = time.perf_counter()
+    frames = render_fixture_frames(cam, REPLICA_END)
+    t1 = time.perf_counter()
+    depths16 = write_replica_fixture(fixture, frames, scale)
+    print(f"replica fixture: {REPLICA_END} frames of {cam['H']}x{cam['W']} rendered in {t1 - t0:.1f} s, written in "
+          f"{time.perf_counter() - t1:.1f} s to {fixture}")
+    ds = get_dataset(cfg, argparse.Namespace(input_folder=fixture), cfg.get("scale", 1))
+    check_read_back("replica", ds, frames, depths16, scale, int(cam.get("crop_edge", 0)))
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    npz = builder.main([REPLICA_ROOM0, "--input_folder", fixture, "--output", "replica_tsdf_volume",
+                        "--device", dev.type])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with np.load(npz) as data:
+        shape, observed = data["tsdf"].shape, float(data["observed"].mean())
+    print(f"builder: {npz}: {shape} = {int(np.prod(shape)) / 1e6:.1f} M voxels of {cfg['tsdf']['voxel_size']} m, "
+          f"{100 * observed:.2f} % observed, every {cfg['tsdf']['space']} frame(s); {build_s:.1f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    out_dir = os.path.join(work, "out")
+    argv = [REPLICA_ROOM0, "--input_folder", fixture, "--output", out_dir, "--device", dev.type,
+            "--end_idx", str(REPLICA_END), *PANELS_EVERY_5]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    slam = run_mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"replica: prior source {slam.tsdf_source}")
+    if os.path.abspath(slam.tsdf_source) != os.path.abspath(npz):
+        fail(f"replica: the prior came from {slam.tsdf_source}, not from the builder's cache {npz}")
+    records = [json.loads(ln) for ln in open(os.path.join(out_dir, "metrics.jsonl"))]
+    for r in records:
+        if r["event"] == "track":
+            print(f"replica track frame {r['idx']}: loss {r['loss']:.4f}")
+        elif r["event"] == "map":
+            print(f"replica map frame {r['idx']}: losses {json.dumps(r['losses'])}")
+    _, _, err = report_run(slam, out_dir, wall, "replica", records)
+    print(f"replica: peak device memory {peak:.2f} GiB")
+    mapped = [r["idx"] for r in records if r["event"] == "map"]
+    want = [i for i in range(REPLICA_END) if i % slam.every_frame == 0 or i == REPLICA_END - 1]
+    if mapped != want:
+        fail(f"replica: mapped frames {mapped}, the schedule maps {want}")
+    if float(np.sqrt(np.mean(err**2))) > 0.10:
+        fail("replica: unaligned ATE above 10 cm")
+    check_panels(slam, 0, REPLICA_END, "replica")
+    rec_v, rec_f, _ = read_ply(os.path.join(out_dir, "mesh", "final_mesh_eval_rec.ply"))
+    metrics = score_meshes(slam.cfg, slam.cam, [(rec_v, rec_f)], slam.gt_c2w_list[:REPLICA_END])[0]
+    print(f"replica final_mesh_eval_rec.ply ({len(rec_v)} vertices, {len(rec_f)} faces) vs GT culled to frames "
+          f"0-{REPLICA_END - 1}: {json.dumps(metrics)} (printed, no gate)")
+    os.chdir(REPO)
+    return {"slam": slam, "out_dir": out_dir}
+
+
+def phase_scannet_read(configs_dir: str) -> None:
+    """Phase 13(a): a ScanNet-layout fixture read back through ``ScanNet``."""
+    import argparse
+
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.utils.datasets import ScanNet, get_dataset
+
+    work = fresh_workdir("chip_smoke_scannet_", configs_dir)
+    os.chdir(work)
+    cfg = load_config(SCANNET_SCENE, default_config_path())
+    cam, scale, edge = cfg["cam"], float(cfg["cam"]["png_depth_scale"]), int(cfg["cam"]["crop_edge"])
+    fixture = os.path.join(work, "scene0000_00")
+    frames = render_fixture_frames(cam, 3)
+    depths16 = write_scannet_fixture(fixture, frames, scale)
+    ds = get_dataset(cfg, argparse.Namespace(input_folder=fixture), cfg.get("scale", 1))
+    want = (cam["H"] - 2 * edge, cam["W"] - 2 * edge)
+    if not isinstance(ds, ScanNet) or ds[0][2].shape != want:
+        fail(f"scannet: {type(ds).__name__} gives depth of {ds[0][2].shape}, expected {want}")
+    check_read_back("scannet", ds, frames, depths16, scale, edge)
+    os.chdir(REPO)
+
+
+def phase_pretrain(torch, dev, steps: int):
+    """Phases 13(b) and 14: ``pretrain_decoders`` at its shipped widths for
+    ``steps`` steps to a temporary path; fails on a non-finite loss, a last
+    loss not below the first, K1 launches other than two a step, or an
+    ``.npz`` that does not load. Returns (the ``.npz`` path, losses)."""
+    from attentive_dfprior_tpu_torch.models.decoders import init_df_decoders, load_pretrained_npz
+    from attentive_dfprior_tpu_torch.ops.cuda.halo_fold_kernel import KERNEL as K1
+    from attentive_dfprior_tpu_torch.tools import pretrain_decoders
+
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pretrain_"), "low_high.npz")
+    before = K1.launches
+    t0 = time.perf_counter()
+    path, losses = pretrain_decoders.main(["--out", out, "--steps", str(steps), "--device", dev.type])
+    wall = time.perf_counter() - t0
+    k1 = K1.launches - before
+    print(f"pretrain: {steps} steps in {wall:.2f} s ({1e3 * wall / steps:.3f} ms per step, the write included); "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; K1 launches {k1} ({k1 / steps:g} a step)")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"pretrain: losses {losses[0]} -> {losses[-1]} (finite and falling expected)")
+    if k1 != 2 * steps:
+        fail(f"pretrain: K1 launched {k1} times, expected {2 * steps}")
+    dec = load_pretrained_npz(init_df_decoders(torch.Generator().manual_seed(0)), path)
+    if dec["high"]["fc_c"][0]["w"].shape[0] != 64:
+        fail("pretrain: the written high decoder does not take 64 features")
+    return path, losses
+
+
+def visible_vertices(verts, faces, poses, cam, tol: float = 0.02):
+    """Vertices of a mesh that some pose sees: in the image, within ``tol``
+    of the mesh's own rasterized depth there."""
+    from attentive_dfprior_tpu_torch import native
+
+    seen = np.zeros(len(verts), dtype=bool)
+    homo = np.concatenate([verts, np.ones((len(verts), 1))], axis=1)
+    for c2w in poses:
+        w2c = np.linalg.inv(_opencv_pose(c2w))
+        depth = native.rasterize_depth(verts, faces, w2c, cam.fx, cam.fy, cam.cx, cam.cy, cam.H, cam.W)
+        p = (w2c @ homo.T).T[:, :3]
+        z = np.maximum(p[:, 2], 1e-9)
+        u = np.round(cam.fx * p[:, 0] / z + cam.cx).astype(np.int64)
+        v = np.round(cam.fy * p[:, 1] / z + cam.cy).astype(np.int64)
+        inside = (p[:, 2] > 0) & (u >= 0) & (u < cam.W) & (v >= 0) & (v < cam.H)
+        d = np.zeros(len(verts))
+        d[inside] = depth[v[inside], u[inside]]
+        seen |= inside & (np.abs(d - p[:, 2]) < tol)
+    return seen
+
+
+def phase_refuse(torch, dev, replica) -> None:
+    """Phase 13(c): ``evaluate_scannet.refuse`` on the card along phase
+    12's poses, of the synthetic GT mesh (gates: recall and completion
+    against the GT vertices those poses see) and of phase 12's mesh
+    (printed). Accuracy, precision and F-score are printed, not gated: the
+    JAX package's face rule, which ``refuse`` keeps, meshes the frusta's
+    sides (ROADMAP F10)."""
+    from attentive_dfprior_tpu_torch.tools.evaluate_scannet import evaluate_mesh_metrics, refuse
+    from attentive_dfprior_tpu_torch.utils.ply import read_ply
+    from attentive_dfprior_tpu_torch.utils.synthetic import SyntheticScene
+
+    slam = replica["slam"]
+    poses, cam = slam.gt_c2w_list[:REPLICA_END], slam.cam
+    gt_v, gt_f, _ = SyntheticScene.from_config(slam.cfg).gt_mesh(resolution=192)
+    seen = gt_v[visible_vertices(gt_v, gt_f, poses, cam)]
+    rec_v, rec_f, _ = read_ply(os.path.join(replica["out_dir"], "mesh", "final_mesh_eval_rec.ply"))
+    for label, (v, f) in (("GT mesh", (gt_v, gt_f)), ("replica mesh", (rec_v, rec_f))):
+        t0 = time.perf_counter()
+        rv, rf = refuse(v, f, poses, cam, device=dev)
+        dt = time.perf_counter() - t0
+        if not (len(rf) and np.isfinite(rv).all()):
+            fail(f"refuse ({label}): {len(rf)} faces, finite vertices {bool(np.isfinite(rv).all())}")
+        metrics = evaluate_mesh_metrics(rv, seen)
+        print(f"refuse ({label}, {len(f)} faces, voxel 0.01 m, {len(poses)} poses of {cam.H}x{cam.W}): {dt:.2f} s, "
+              f"{len(rf)} faces; vs the GT's {len(seen)} vertices these poses see: {json.dumps(metrics)}")
+        if label == "GT mesh" and (metrics["Recal"] < REFUSE_RECALL_GATE or metrics["Comp"] > REFUSE_COMP_GATE):
+            fail(f"refuse: the GT re-fused reads recall {metrics['Recal']:.4f} and completion "
+                 f"{metrics['Comp']:.4f} m against the GT surface the poses see (gates {REFUSE_RECALL_GATE}, "
+                 f"{REFUSE_COMP_GATE} m)")
+
+
+def reference_checkpoint(torch, slam) -> dict:
+    """Phase 12's scene in the reference's ``.tar`` layout (ref:
+    src/utils/Logger.py:24-34): grids [1, C, NZ, NY, NX], decoders as an
+    nn.Module state dict (Linear weights (out, in))."""
+    params = {k: (v.detach().cpu() if torch.is_tensor(v) else v) for k, v in slam.params.items()}
+    sd = {}
+
+    def linear(name, p):
+        sd[f"{name}.weight"] = p["w"].detach().cpu().T.contiguous()
+        sd[f"{name}.bias"] = p["b"].detach().cpu().clone()
+
+    for prefix in ("low", "high", "color"):
+        d = slam.params[prefix]
+        sd[f"{prefix}_decoder.embedder._B"] = d["B"].detach().cpu().clone()
+        for i in range(len(d["pts"])):
+            linear(f"{prefix}_decoder.pts_linears.{i}", d["pts"][i])
+            linear(f"{prefix}_decoder.fc_c.{i}", d["fc_c"][i])
+        linear(f"{prefix}_decoder.output_linear", d["out"])
+    for i, layer in enumerate(slam.params["mlp"]["layers"]):
+        linear(f"mlp.pts_linears.{i}", layer)
+    linear("mlp.output_linear", slam.params["mlp"]["out"])
+    n = slam.last_idx + 1
+    return {
+        "c": {k: params[k].permute(3, 2, 1, 0).contiguous()[None] for k in ("grid_low", "grid_high", "grid_color")},
+        "decoder_state_dict": sd,
+        "gt_c2w_list": torch.from_numpy(slam.gt_c2w_list[:n].copy()),
+        "estimate_c2w_list": torch.from_numpy(slam.estimate_c2w_list[:n].copy()),
+        "keyframe_list": [int(i) for i in slam.keyframes.frame_idx],
+        "idx": torch.tensor(slam.last_idx),
+    }
+
+
+def phase_convert(torch, replica) -> None:
+    """Phase 13(d): phase 12's scene as a reference ``.tar``, converted by
+    ``convert_reference_ckpt`` and loaded back through ``load_checkpoint``
+    onto the card: every leaf equal to the scene's."""
+    from attentive_dfprior_tpu_torch.tools import convert_reference_ckpt
+    from attentive_dfprior_tpu_torch.utils.logger import load_checkpoint
+    from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
+
+    slam = replica["slam"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_convert_")
+    tar, out = os.path.join(work, f"{slam.last_idx:05d}.tar"), os.path.join(work, f"{slam.last_idx:05d}.npz")
+    ckpt = reference_checkpoint(torch, slam)
+    torch.save(ckpt, tar)
+    t0 = time.perf_counter()
+    convert_reference_ckpt.main([tar, out])
+    params, meta = load_checkpoint(out, slam.params)
+    leaves, want = tree_leaves(params), tree_leaves(slam.params)
+    same = sum(bool(torch.equal(a, b.detach())) for a, b in zip(leaves, want))
+    print(f"convert: {os.path.getsize(tar) / 2**20:.1f} MiB .tar -> {os.path.getsize(out) / 2**20:.1f} MiB .npz and "
+          f"back in {time.perf_counter() - t0:.2f} s; {same} of {len(want)} leaves equal on {leaves[0].device}; "
+          f"idx {meta['idx']}, keyframes {[int(i) for i in meta['keyframe_idx_list']]}")
+    if same != len(want) or meta["idx"] != slam.last_idx or list(meta["keyframe_idx_list"]) != ckpt["keyframe_list"]:
+        fail("convert: the converted checkpoint does not load back as the scene it came from")
+
+
+def phase_prior_gates(torch, dev, path: str) -> None:
+    """Phase 14's gates on the prior at ``path`` (the contract of
+    tests/test_pretrained_prior.py, run by the port on the card)."""
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.models.decoders import init_df_decoders, load_pretrained_npz, mlp_decoder_forward
+    from attentive_dfprior_tpu_torch.ops.adam import adam_init
+    from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, mapping_stage
+    from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
+    from attentive_dfprior_tpu_torch.utils.tree import tree_map
+
+    dec = tree_map(lambda t: t.to(dev), load_pretrained_npz(init_df_decoders(torch.Generator().manual_seed(0)), path))
+    rng = np.random.default_rng(0)
+    p = torch.as_tensor(rng.uniform(-3, 3, (2000, 3)).astype(np.float32), device=dev)
+    c0 = torch.as_tensor(rng.normal(0, 0.01, (2000, 32)).astype(np.float32), device=dev)
+    kick = torch.as_tensor(rng.choice([-0.5, 0.5], size=(2000, 32)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        occ0 = mlp_decoder_forward(dec["low"], p, c0).abs().cpu().numpy()
+        occ1 = mlp_decoder_forward(dec["low"], p, c0 + kick).abs().cpu().numpy()
+    p99 = float(np.percentile(occ1, 99))
+    print(f"prior: max |occ| at rest {occ0.max():.4f}, p99 |occ| under +-0.5 kicks {p99:.4f} (gates 1.9)")
+    if occ0.max() >= 1.9 or p99 >= 1.9:
+        fail("prior: the decoders saturate under Adam-scale feature steps")
+
+    os.chdir(REPO)
+    cfg = load_config(ROOM, default_config_path())
+    cfg["data"]["n_frames"] = 3
+    cfg["cam"].update(H=48, W=64, fx=48.0, fy=48.0, cx=31.5, cy=23.5)
+    cfg["tsdf"]["voxel_size"] = 0.05
+    cfg["rendering"]["N_samples"] = 24
+    cfg["rendering"]["N_surface"] = 8
+    cfg["pretrained_decoders"]["low_high"] = path
+    slam = SLAMSystem(cfg, output=tempfile.mkdtemp(prefix="chip_smoke_prior_"), device=dev)
+    if not slam.scene_cfg.fix_high:
+        fail("prior: the high decoder is not frozen with a prior loaded")
+    _, color, depth, c2w = slam.dataset[0]
+    m, n = slam.mapper, 80
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), slam.params)
+    losses = mapping_stage(
+        params, adam_init(params), torch.as_tensor(color, device=dev)[None], torch.as_tensor(depth, device=dev)[None],
+        torch.as_tensor(np.asarray(c2w, np.float32), device=dev)[None], None, m.tsdf_volume, m.tsdf_bnds, m.bound,
+        n, [0.0] * n, StageLRs(0.0, 0.0, 0.5, 0.0, 0.0), "low", 500, m.cam, m.rcfg, (True, True), 0.2,
+        generator=torch.Generator(device=dev).manual_seed(3),
+    ).cpu().numpy()
+    plateau = 0.8 * float(np.asarray(depth).mean()) * 500
+    print(f"prior: first-frame low stage at lr 0.5, loss {losses[0]:.2f} -> {losses[-1]:.2f} in {n} iterations "
+          f"(gates: below {0.5 * losses[0]:.2f}, and below {plateau:.2f}, the near-plane plateau)")
+    if not (losses[-1] < 0.5 * losses[0] and losses[-1] < plateau):
+        fail("prior: the first-frame low stage did not converge with the pretrained decoders")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,10",
-                    help="comma-separated phases to run (6, 8, 9 and 11 only on request)")
+    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13",
+                    help="comma-separated phases to run (6, 8, 9, 11 and 14 only on request)")
     ap.add_argument("--async-equal-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.async_equal_child:
@@ -908,6 +1354,8 @@ def main() -> None:
     phases = {int(x) for x in args.phases.split(",")}
     if 7 in phases and 4 not in phases:
         fail("phase 7 meshes phase 4's map: run it with phase 4")
+    if 13 in phases and 12 not in phases:
+        fail("phase 13 re-fuses and converts phase 12's map: run it with phase 12")
     if 6 in phases:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # deterministic cuBLAS
 
@@ -988,6 +1436,25 @@ def main() -> None:
     if 11 in phases:
         drive("room_tracking_loose", phase_room_tracking, torch, dev, "loose")
         done(11)
+    configs_dir = os.path.join(REPO, "configs")
+    if 12 in phases:
+        replica = drive("replica", phase_replica, torch, dev, configs_dir)
+        if paths["replica"]["halo_fold"] <= 0 or paths["replica"]["decoder_mlp"] <= 0:
+            fail(f"the Replica entry point launched K1 (halo fold) {paths['replica']['halo_fold']} times and K2 "
+                 f"(decoder MLP) {paths['replica']['decoder_mlp']} times (expected both > 0)")
+        done(12)
+    if 13 in phases:
+        phase_scannet_read(configs_dir)
+        drive("pretrain", phase_pretrain, torch, dev, PRETRAIN_STEPS)
+        phase_refuse(torch, dev, replica)
+        phase_convert(torch, replica)
+        done(13)
+    if 14 in phases:
+        t0 = time.perf_counter()
+        path, losses = drive("pretrain_full", phase_pretrain, torch, dev, 6000)
+        print(f"pretrain (6000 steps): {time.perf_counter() - t0:.1f} s, final loss {losses[-1]:.4f}")
+        phase_prior_gates(torch, dev, path)
+        done(14)
     if 3 in phases:
         profile_cycles(torch, room0_cycles, room0)
         print(f"phase 3 profile: {time.perf_counter() - t_phase[0]:.1f} s")

@@ -375,7 +375,8 @@ def test_tsdf_builder_cli_writes_a_prior_the_system_loads(tmp_path, monkeypatch)
     cfg = tiny_room_cfg()
     cfg["tsdf"]["voxel_size"] = float(data["voxel_size"])
     monkeypatch.chdir(tmp_path)  # where SLAMSystem looks for <dataset>_tsdf_volume/
-    vol, bnds, observed = load_tsdf_volume(cfg, device="cpu")
+    vol, bnds, observed, source = load_tsdf_volume(cfg, device="cpu")
+    assert os.path.abspath(source) == os.path.abspath(out)
     np.testing.assert_array_equal(vol.numpy(), data["tsdf"])
     np.testing.assert_array_equal(observed, data["observed"])
     np.testing.assert_array_equal(bnds, data["bounds"])
