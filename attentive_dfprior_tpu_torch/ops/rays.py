@@ -1,6 +1,6 @@
-"""Ray generation and pixel sampling.
+"""Ray generation, pixel sampling and hierarchical (PDF) sampling.
 
-The port of the JAX package's ``ops/rays.py`` (ref: src/common.py:76-136,
+The port of the JAX package's ``ops/rays.py`` (ref: src/common.py:21-136,
 254-272). The camera convention is OpenGL-style (-z forward): the ray
 direction in the camera frame is [(i-cx)/fx, -(j-cy)/fy, -1].
 
@@ -130,6 +130,51 @@ def get_samples(
     i, j, d, c = sample_pixels(H0, H1, W0, W1, n, depth, color, generator, pixel_idx)
     rays_o, rays_d = get_rays_from_uv(i, j, c2w, fx, fy, cx, cy)
     return rays_o, rays_d, d, c
+
+
+def sample_pdf(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    N_samples: int,
+    det: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Hierarchical sampling by the inverse CDF (ref: src/common.py:21-65).
+
+    Args:
+        bins: (B, M) bin edges; weights: (B, M - 1), floored at 1e-5 before
+            they are normalized (the reference's call: bins are the z
+            midpoints, weights the interior sample weights).
+        det: ``u`` on ``linspace(0, 1, N_samples)``; else uniform draws
+            from ``generator``.
+
+    Returns:
+        (B, N_samples) resampled positions. ``u`` = 0 or 1 sits on the
+        CDF's ends, where cumsum's rounding may move the bin index but not
+        the sample.
+    """
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1).contiguous()  # (B, M)
+    shape = cdf.shape[:-1] + (N_samples,)
+    if det:
+        u = torch.linspace(0.0, 1.0, N_samples, dtype=cdf.dtype, device=cdf.device).expand(shape).contiguous()
+    else:
+        u = torch.rand(shape, generator=generator, dtype=cdf.dtype, device=cdf.device)
+
+    inds = torch.searchsorted(cdf, u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    last_bin = bins.shape[-1] - 1
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, torch.clamp(below, max=last_bin))
+    bins_above = torch.gather(bins, -1, torch.clamp(above, max=last_bin))
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)
 
 
 def ray_bound_intersection(

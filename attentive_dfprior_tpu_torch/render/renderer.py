@@ -3,9 +3,11 @@
 The port of the JAX package's ``render/renderer.py`` (ref:
 src/utils/Renderer.py:110-327): sample depths (stratified near->far plus a
 surface band around the sensor depth), query the scene (``df_forward``),
-and composite with sigmoid occupancy. Importance resampling
-(``N_importance > 0``) is not ported yet (ROADMAP.md); both shipped
-configs use ``N_importance: 0``.
+and composite with sigmoid occupancy. With ``N_importance > 0`` a second
+pass resamples each ray by the inverse CDF of the first pass's weights
+(``ops/rays.py:sample_pdf``) and evaluates the resampled points, as the
+JAX package does (the reference re-evaluates its old points there,
+ref: Renderer.py:235-252); both shipped configs use ``N_importance: 0``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from attentive_dfprior_tpu_torch.models.decoders import df_forward, eval_points_chunk
 from attentive_dfprior_tpu_torch.ops.compositing import raw2outputs
-from attentive_dfprior_tpu_torch.ops.rays import get_rays_full_image, ray_bound_intersection
+from attentive_dfprior_tpu_torch.ops.rays import get_rays_full_image, ray_bound_intersection, sample_pdf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +43,7 @@ def make_z_vals(
     rcfg: RenderConfig,
     generator: Optional[torch.Generator] = None,
     no_gt_depth: bool = False,
+    depth_max: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-ray sample depths, sorted (ref: Renderer.py:140-221).
 
@@ -50,6 +53,9 @@ def make_z_vals(
         [1e-3, max depth] for d == 0.
     With ``no_gt_depth``: near 0.01, far = bound exit, no surface band.
     Perturbation draws from ``generator`` (only when rcfg.perturb > 0).
+    ``depth_max``: the batch's max depth, when these rays are one block of
+    a larger batch (``parallel/sharding.py``); default the max of
+    ``gt_depth``.
 
     Returns:
         (R, N_samples + N_surface) z values ((R, N_samples) without depth).
@@ -62,7 +68,7 @@ def make_z_vals(
         far = far_bb[:, None]
         near = torch.full((R, 1), 0.01, dtype=dt, device=rays_o.device)
     else:
-        max_depth = torch.max(gt_depth)
+        max_depth = torch.max(gt_depth) if depth_max is None else depth_max
         far = torch.minimum(torch.clamp(far_bb, min=0.0), max_depth * 1.2)[:, None]
         near = (gt_depth * 0.01)[:, None]
 
@@ -103,6 +109,7 @@ def render_rays(
     fused: bool = False,
     no_gt_depth: bool = False,
     grid_vjp: str = "halo",
+    depth_max: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render a batch of rays (ref: Renderer.py:110-255).
 
@@ -110,33 +117,49 @@ def render_rays(
         params: scene tree (grids + decoders).
         rays_o / rays_d: (R, 3); gt_depth: (R,) sensor depth (0 = none).
         stage: 'low' | 'high' | 'color'.
+        generator: the perturbation's draws, and the importance samples'
+            when ``perturb > 0`` (a generator seeded 0 when None).
         fused: decoder MLPs through K2 (no-gradient paths only).
         no_gt_depth: render without sensor depth (``gt_depth`` ignored).
         grid_vjp: the feature grids' gradient variant (``df_forward``).
+        depth_max: as in ``make_z_vals``.
 
     Returns:
-        depth (R,), depth_var (R,), color (R, 3), att_weight (R, S).
+        depth (R,), depth_var (R,), color (R, 3), att_weight (R, S) with
+        S = N_samples + N_surface (+ N_importance).
     """
+    z_vals = make_z_vals(rays_o, rays_d, gt_depth, bound, rcfg, generator, no_gt_depth, depth_max)
+    raw, att_w = _query(params, rays_o, rays_d, z_vals, tsdf_volume, tsdf_bnds, bound, stage, fused, grid_vjp)
+    depth, depth_var, color, weights = raw2outputs(raw, z_vals, rays_d, occupancy=rcfg.occupancy)
     if rcfg.N_importance > 0:
-        raise NotImplementedError(
-            "N_importance > 0 is not ported yet (ROADMAP.md, 'Modules to port': "
-            "renderer importance resampling)"
-        )
-    z_vals = make_z_vals(rays_o, rays_d, gt_depth, bound, rcfg, generator, no_gt_depth)
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]  # (R, S, 3)
+        # resample by the first pass's weights and evaluate the resampled
+        # points (ref: Renderer.py:235-252; the JAX package's
+        # render/renderer.py:159-184)
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        det = rcfg.perturb == 0.0
+        if not det and generator is None:
+            generator = torch.Generator(device=rays_o.device).manual_seed(0)
+        z_samples = sample_pdf(z_mid, weights[..., 1:-1], rcfg.N_importance, det, generator).detach()
+        z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+        raw, att_w = _query(params, rays_o, rays_d, z_all, tsdf_volume, tsdf_bnds, bound, stage, fused, grid_vjp)
+        depth, depth_var, color, _ = raw2outputs(raw, z_all, rays_d, occupancy=rcfg.occupancy)
+    return depth, depth_var, color, att_w
+
+
+def _query(params, rays_o, rays_d, z_vals, tsdf_volume, tsdf_bnds, bound, stage, fused, grid_vjp):
+    """The scene at the (R, S) depths ``z_vals`` along the rays: raw (R, S,
+    4) with the out-of-bound occupancy at 100, an opaque wall at the bound
+    (ref: Renderer.py:49-64), and the attention weights (R, S)."""
     R, S = z_vals.shape
-    flat = pts.reshape(-1, 3)
+    flat = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]).reshape(-1, 3)
     raw, att_w = df_forward(
         params, flat, params, tsdf_volume, tsdf_bnds, bound, stage=stage, fused=fused,
         grid_vjp=grid_vjp,
     )
-    # out-of-bound points: occupancy 100, an opaque wall at the bound
-    # (ref: Renderer.py:49-64)
     inside = torch.all((flat > bound[:, 0]) & (flat < bound[:, 1]), dim=-1)
     occ = torch.where(inside, raw[:, 3], torch.full_like(raw[:, 3], 100.0))
     raw = torch.cat([raw[:, :3], occ[:, None]], dim=-1).reshape(R, S, 4)
-    depth, depth_var, color, _ = raw2outputs(raw, z_vals, rays_d, occupancy=rcfg.occupancy)
-    return depth, depth_var, color, att_w.reshape(R, S)
+    return raw, att_w.reshape(R, S)
 
 
 class Renderer:

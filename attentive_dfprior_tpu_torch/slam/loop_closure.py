@@ -20,6 +20,11 @@ revises a past pose). Two mechanisms:
 Frame 0, whose pose is ground truth by construction (ref:
 src/Tracker.py:186-188), is never moved. Re-localization reads the scene
 detached, so it launches neither K1 nor K2.
+
+Under ray-axis data parallelism re-localization runs ``track_frame`` on the
+tracker's dp group. Its decisions (the overlap scores, the ``min_gap``
+keyframes, the relaxation interval) come from replicated state, so every
+rank takes the same branch and issues the same collectives.
 """
 
 from __future__ import annotations
@@ -147,7 +152,7 @@ class LoopCloser:
             t.tracking_pixels, int(n_iters), t.ignore_edge_W, t.ignore_edge_H,
             t.handle_dynamic, t.use_color, t.w_color_loss,
             float(self.lr) if self.lr is not None else t.cam_lr,
-            t.seperate_LR, t.lr_final_factor, generator, pixel_idx, t.grid_vjp, t.adam_lazy,
+            t.seperate_LR, t.lr_final_factor, generator, pixel_idx, t.grid_vjp, t.adam_lazy, t.shards,
         )
         with torch.no_grad():
             c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()

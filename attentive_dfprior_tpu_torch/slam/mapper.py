@@ -15,6 +15,10 @@ untouched (ops/adam.py).
 
 With ``mapping.BA`` (keyframe bundle adjustment) the window poses are
 optimized with the scene, anchored at one frozen window keyframe.
+
+Under ray-axis data parallelism (``parallel/sharding.py``) every rank draws
+the same whole batch, renders its block, and the gradients (BA's pose
+gradient with them) are summed over the group before the masks and Adam.
 """
 
 from __future__ import annotations
@@ -76,19 +80,106 @@ def mapping_loss_fn(
     w_color_loss: float,
     w_reg: float,
     grid_vjp: str = "halo",
+    depth_max: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mapping loss (ref: src/Mapper.py:451-469): depth L1 over valid in-bound
     rays, the |attention weight - 1| warm-up regularizer (weight ``w_reg``),
-    and color L1 in the color stage."""
+    and color L1 in the color stage. ``depth_max``: the whole batch's max
+    depth when these rays are one block of it (``render_rays``)."""
     depth, _, color, att_w = render_rays(
         params, rays_o, rays_d, gt_depth, tsdf_volume, tsdf_bnds, bound, stage, rcfg,
-        grid_vjp=grid_vjp,
+        grid_vjp=grid_vjp, depth_max=depth_max,
     )
     depth_mask = (gt_depth > 0) & inside_mask
     loss = torch.sum(torch.abs(gt_depth - depth) * depth_mask)
     loss = loss + w_reg * torch.sum(torch.abs(att_w - 1.0) * inside_mask[:, None])
     if stage == "color":
         loss = loss + w_color_loss * torch.sum(torch.abs(gt_color - color) * inside_mask[:, None])
+    return loss
+
+
+def mapping_grads(
+    params: Any,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    gt_depth: torch.Tensor,
+    gt_color: torch.Tensor,
+    inside_mask: torch.Tensor,
+    tsdf_volume: torch.Tensor,
+    tsdf_bnds: torch.Tensor,
+    bound: torch.Tensor,
+    stage: str,
+    rcfg: RenderConfig,
+    w_color_loss: float,
+    w_reg: float = 0.0,
+    accum: int = 1,
+    ba: bool = False,
+    grid_vjp: str = "halo",
+    shards=None,
+) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
+    """The loss of one drawn ray batch (``inside_mask``: its in-bound rays)
+    and its gradient for every leaf of ``params`` (None where a leaf is
+    outside the stage's graph).
+
+    With ``shards`` (``parallel.sharding.RayShards``) only the blocks it
+    names are rendered (the far plane from the whole batch's max depth),
+    and loss and gradients are summed over its group in one all-reduce; a
+    ``RayShards`` with no group gives one rank's part as it is.
+
+    Returns (loss, gradients in leaf order of ``params``); the loss is
+    scaled 1/``accum``."""
+    scene = params["scene"] if ba else params
+    blocks, dmax = shards.local_blocks(gt_depth) if shards is not None else ([slice(None)], None)
+    loss = 0.0
+    for sl in blocks:
+        loss = loss + mapping_loss_fn(
+            scene, rays_o[sl], rays_d[sl], gt_depth[sl], gt_color[sl], inside_mask[sl], tsdf_volume, tsdf_bnds,
+            bound, stage, rcfg, w_color_loss, w_reg, grid_vjp, depth_max=dmax,
+        )
+    if accum != 1:
+        loss = loss / accum
+    grads = list(torch.autograd.grad(loss, tree_leaves(params), allow_unused=True))
+    if shards is None:
+        return loss.detach(), grads
+    # one all-reduce of loss and gradients; the lazy Adam picks the touched
+    # leaves from the reduced gradient, so the replicas stay equal
+    reduced = shards.all_reduce([loss.detach().reshape(1)] + grads)
+    return reduced[0][0], reduced[1:]
+
+
+def mapping_step(
+    params: Any,
+    adam_state: Any,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    gt_depth: torch.Tensor,
+    gt_color: torch.Tensor,
+    inside_mask: torch.Tensor,
+    tsdf_volume: torch.Tensor,
+    tsdf_bnds: torch.Tensor,
+    bound: torch.Tensor,
+    lr_tree: Any,
+    stage: str,
+    rcfg: RenderConfig,
+    w_color_loss: float,
+    w_reg: float = 0.0,
+    frustum_masks: Optional[Dict[str, torch.Tensor]] = None,
+    accum: int = 1,
+    ba: bool = False,
+    pose_mask: Optional[torch.Tensor] = None,
+    grid_vjp: str = "halo",
+    adam_lazy: bool = True,
+    shards=None,
+) -> torch.Tensor:
+    """One mapping iteration on a drawn ray batch, in place on ``params``
+    and ``adam_state``: ``mapping_grads`` (reduced over ``shards``' group),
+    the frustum and BA-anchor masks, one lazy Adam step. Returns the loss."""
+    loss, grads = mapping_grads(
+        params, rays_o, rays_d, gt_depth, gt_color, inside_mask, tsdf_volume, tsdf_bnds, bound, stage, rcfg,
+        w_color_loss, w_reg, accum, ba, grid_vjp, shards,
+    )
+    grads = _mask_grads(params, grads, ba, pose_mask, frustum_masks)
+    adam_update(params, grads, adam_state, lr_tree, lazy=adam_lazy)
     return loss
 
 
@@ -119,6 +210,7 @@ def mapping_stage(
     ba_cam_lr: float = 0.0,
     grid_vjp: str = "halo",
     adam_lazy: bool = True,
+    shards=None,
 ) -> torch.Tensor:
     """Run one optimization stage of ``n_iters`` iterations in place on
     ``params`` and ``adam_state`` (ref: slam/mapper.py:125-310).
@@ -138,18 +230,20 @@ def mapping_stage(
             (``ops/grid_sample.py:GRID_VJPS``).
         adam_lazy: Adam's per-leaf lazy rule (``ops/adam.py``); False steps
             every leaf.
+        shards: ``parallel.sharding.RayShards``: render the blocks it names
+            of the whole drawn batch (the far plane from the whole batch's
+            max depth) and sum loss and gradients over its group, one
+            all-reduce per iteration, before the masks and Adam; None runs
+            the whole batch here.
 
     Returns:
-        (n_iters,) per-iteration losses.
+        (n_iters,) per-iteration losses (the whole batch's under ``shards``).
     """
     fix_high, fix_color = fix_flags
     if ba:
         lr_tree = {"scene": build_lr_tree(params["scene"], lrs, fix_high, fix_color), "pose": ba_cam_lr}
-        scene = params["scene"]
     else:
         lr_tree = build_lr_tree(params, lrs, fix_high, fix_color)
-        scene = params
-    leaves = tree_leaves(params)
     H, W = cam.H, cam.W
     n_draw = pixs_per_image * accum
     losses = []
@@ -167,16 +261,10 @@ def mapping_stage(
         gd, gc = gd.reshape(-1), gc.reshape(-1, 3)
         # in-bound ray mask (ref: Mapper.py:438-449), as loss weights
         inside = ray_bound_intersection(ro.detach(), rd.detach(), bound) >= gd
-        loss = mapping_loss_fn(
-            scene, ro, rd, gd, gc, inside, tsdf_volume, tsdf_bnds, bound,
-            stage, rcfg, w_color_loss, float(w_reg_flags[it]), grid_vjp,
-        )
-        if accum != 1:
-            loss = loss / accum
-        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-        grads = _mask_grads(params, grads, ba, pose_mask, frustum_masks)
-        adam_update(params, grads, adam_state, lr_tree, lazy=adam_lazy)
-        losses.append(loss.detach())
+        losses.append(mapping_step(
+            params, adam_state, ro, rd, gd, gc, inside, tsdf_volume, tsdf_bnds, bound, lr_tree, stage, rcfg,
+            w_color_loss, float(w_reg_flags[it]), frustum_masks, accum, ba, pose_mask, grid_vjp, adam_lazy, shards,
+        ))
     return torch.stack(losses) if losses else torch.zeros(0)
 
 
@@ -267,8 +355,8 @@ def get_frustum_mask(
 
 
 class Mapper:
-    """Host-side mapping agent driving the stage loops; ``grid_vjp`` and
-    ``adam_lazy`` as in ``mapping_stage``."""
+    """Host-side mapping agent driving the stage loops; ``grid_vjp``,
+    ``adam_lazy`` and ``shards`` (the dp group) as in ``mapping_stage``."""
 
     def __init__(
         self,
@@ -281,8 +369,10 @@ class Mapper:
         device: torch.device,
         grid_vjp: str = "halo",
         adam_lazy: bool = True,
+        shards=None,
     ):
         m = cfg["mapping"]
+        self.shards = shards
         self.grid_vjp = grid_vjp
         self.adam_lazy = adam_lazy
         self.cfg = cfg
@@ -458,7 +548,7 @@ class Mapper:
                     pixel_idx=None if pixel_idx is None else pixel_idx[stage][a:b],
                     accum=self.accum, ba=ba_on, pose_mask=pose_mask,
                     ba_cam_lr=self.ba_cam_lr, grid_vjp=self.grid_vjp,
-                    adam_lazy=self.adam_lazy,
+                    adam_lazy=self.adam_lazy, shards=self.shards,
                 ))
             stage_losses[stage] = torch.cat(chunks)
         for stage, ls in stage_losses.items():

@@ -30,8 +30,16 @@ Visualizers write rendered-vs-input panels (``mapping_vis/``,
 ``tracking_vis/``). ``resume`` restores a checkpoint and ``run(start_idx)``
 continues from it.
 
-Not in this port yet (raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``parallel.enable``.
+``parallel.enable`` in a process group of 2 or more ranks
+(``parallel/sharding.py``) runs strict mode as ray-axis data parallelism:
+each rank drives one card (``cuda:{LOCAL_RANK}`` or the device named), the
+scene and the priors are broadcast from rank 0 after set-up, every rank
+runs the same loop and issues the same collectives in the same order
+(mapping, BA, tracking and loop closure each sum over the group), and rank
+0 alone writes the side outputs, the panels and ``metrics.jsonl``. Below 2
+ranks the single-device path runs unchanged. Not in this port yet (raises
+``NotImplementedError`` naming its ROADMAP.md item): ``parallel.split``,
+and ``loose`` / ``free`` on a group of 2 or more ranks.
 """
 
 from __future__ import annotations
@@ -46,11 +54,13 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from attentive_dfprior_tpu_torch.camera import Camera
 from attentive_dfprior_tpu_torch.models.scene import SceneConfig, init_scene
 from attentive_dfprior_tpu_torch.ops.grid_sample import grid_sampler
 from attentive_dfprior_tpu_torch.ops.pose import clamp_pose_update
+from attentive_dfprior_tpu_torch.parallel.sharding import ASYNC_ITEM, mesh_from_config, replicate
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, Renderer
 from attentive_dfprior_tpu_torch.slam.keyframes import KeyframeStore, keyframe_selection_overlap
 from attentive_dfprior_tpu_torch.slam.loop_closure import LoopCloser
@@ -174,8 +184,15 @@ class SLAMSystem:
         self.sync_method = str(cfg.get("sync_method", "strict"))
         if self.sync_method not in SYNC_METHODS:
             raise ValueError(f"sync_method {self.sync_method!r} is not one of {SYNC_METHODS}")
-        if bool(cfg.get("parallel", {}).get("enable", False)):
-            raise _not_ported("parallel.enable", "'Sharding and multihost'")
+        par = cfg.get("parallel") or {}
+        if bool(par.get("enable", False)) and par.get("split"):
+            raise _not_ported("parallel.split (the device-split async agents)", ASYNC_ITEM)
+        # the dp group, or None: the single-device path (fewer than 2 ranks)
+        self.shards = mesh_from_config(cfg)
+        if self.shards is not None and self.sync_method != "strict":
+            raise _not_ported(f"sync_method {self.sync_method!r} on a dp group of {self.shards.size} ranks", ASYNC_ITEM)
+        # side outputs, panels and metrics.jsonl: rank 0 of a process group
+        self.is_rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
         self.verbose = bool(cfg.get("verbose", False))
         self.output = output or (getattr(args, "output", None) or cfg["data"]["output"])
@@ -200,6 +217,12 @@ class SLAMSystem:
         self.scene_cfg = SceneConfig.from_config(cfg, pretrained_loaded=pretrained is not None)
         self.seed = int(cfg.get("seed", 0))
         self.params = init_scene(torch.Generator().manual_seed(self.seed), self.scene_cfg, pretrained, self.device)
+        if self.shards is not None:
+            # one scene and one prior, rank 0's, whatever each rank's set-up
+            # computed (the fusion's atomic adds); the mesh prior is rank 0's
+            replicate(tree_leaves(self.params), self.shards)
+            for vol in {id(v): v for v in (self.tsdf_volume_track, self.tsdf_volume)}.values():
+                replicate([vol], self.shards)
         # pixel draws (the class docstring): the mapper's, and in strict
         # mode the tracker's; an async run sets the tracker's own
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
@@ -217,11 +240,11 @@ class SLAMSystem:
         self.renderer = Renderer(self.rcfg, self.scene_cfg.bound, self.tsdf_bnds, self.cam, self.device)
         self.mapper = Mapper(
             cfg, self.cam, self.scene_cfg, self.rcfg, self.tsdf_volume, self.tsdf_bnds, self.device,
-            grid_vjp=grid_vjp, adam_lazy=adam_lazy,
+            grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards,
         )
         self.tracker = Tracker(
             cfg, self.cam, self.rcfg, self.scene_cfg.bound, self.tsdf_volume_track, self.tsdf_bnds, self.device,
-            grid_vjp=grid_vjp, adam_lazy=adam_lazy,
+            grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards,
         )
         self.mesher = Mesher(cfg, self.cam, self.scene_cfg.bound, self.tsdf_bnds, self.device)
         self.logger = Logger(os.path.join(self.output, "ckpts"), self.verbose)
@@ -280,6 +303,8 @@ class SLAMSystem:
         self._kf_lock = threading.Lock()
 
     def _log_metrics(self, record: Dict[str, Any]) -> None:
+        if not self.is_rank0:
+            return
         record.setdefault("t", round(time.time(), 4))
         with self._log_lock, open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -410,8 +435,10 @@ class SLAMSystem:
             window_size = self.mapper.mapping_window_size * 2
         else:
             num_iters, lr_factor = self.mapper.num_joint_iters, self.mapper.lr_factor
-        # no panels on the first frame (by default) or in the color refinement
-        no_vis = color_refine or (idx == 0 and self.cfg["mapping"].get("no_vis_on_first_frame", True))
+        # no panels on the first frame (by default), in the color refinement,
+        # or on a rank other than 0
+        no_vis = (color_refine or (idx == 0 and self.cfg["mapping"].get("no_vis_on_first_frame", True))
+                  or not self.is_rank0)
 
         losses: Dict[str, float] = {}
         with self.profiler.phase("map", rays=outer * num_iters * self.mapper.mapping_pixels):
@@ -477,7 +504,7 @@ class SLAMSystem:
             c2w, loss = t.track(
                 self.params if params is None else params, idx, self._to_device(color), self._to_device(depth),
                 gt_c2w, self.estimate_c2w_list, generator=self.track_generator,
-                visualizer=self.tracking_visualizer,
+                visualizer=self.tracking_visualizer if self.is_rank0 else None,
             )
         self.estimate_c2w_list[idx] = c2w
         if self.verbose:
@@ -700,7 +727,10 @@ class SLAMSystem:
         frames, both again at the last frame (ref: src/Mapper.py:574-602;
         the JAX package's slam/system.py:827-893). ``params``: the scene to
         write (default: the mapper's; the async modes pass the published
-        snapshot). The keyframes are read under the keyframe lock."""
+        snapshot). The keyframes are read under the keyframe lock. Rank 0
+        alone writes them (nothing here runs a collective)."""
+        if not self.is_rank0:
+            return
         last = idx == n - 1
         kf_idx, kf_poses, kf_gt, selected, _ = self._keyframes_view()
         params = self.params if params is None else params

@@ -6,6 +6,12 @@ src/Tracker.py:20-274). A Python loop over iterations replaces the JAX
 depth (+ color) loss, differentiate the 7-DoF camera tensor only, take an
 Adam step, and keep the best candidate. The scene is read detached, so no
 grid gradient (and no K1 launch) is ever computed while tracking.
+
+Under ray-axis data parallelism (``parallel/sharding.py``) every rank
+draws the whole batch and renders its block. Two quantities are global, or
+the ranks would keep different poses: the dynamic-pixel cut's median over
+every in-bound ray's error (gathered), and the loss that picks the best
+candidate (summed over the group with the 7-DoF gradient).
 """
 
 from __future__ import annotations
@@ -56,10 +62,16 @@ def tracking_loss_fn(
     generator: Optional[torch.Generator] = None,
     pixel_idx: Optional[torch.Tensor] = None,
     grid_vjp: str = "halo",
+    shards=None,
 ) -> torch.Tensor:
     """One tracking iteration's loss (ref: src/Tracker.py:75-134): the
     variance-normalized depth L1 over valid in-bound rays with the dynamic
-    pixel cut (err < 10 x median), plus color L1."""
+    pixel cut (err < 10 x median), plus color L1.
+
+    With ``shards`` (``parallel.sharding.RayShards``) the loss of this
+    process's blocks of the batch: the far plane takes the whole batch's
+    max depth and the median every block's errors (gathered over the
+    group); the caller sums the loss over the group."""
     c2w = pose_matrix_from_tensor(camera_tensor)
     H, W = cam.H, cam.W
     ro, rd, gd, gc = get_samples(
@@ -68,18 +80,31 @@ def tracking_loss_fn(
         generator, pixel_idx,
     )
     inside = ray_bound_intersection(ro.detach(), rd.detach(), bound) >= gd
-    depth, var, color, _ = render_rays(
-        params, ro, rd, gd, tsdf_volume, tsdf_bnds, bound, "color", rcfg, grid_vjp=grid_vjp
-    )
-    err = torch.abs(gd - depth) / torch.sqrt(var.detach() + 1e-10)
+    blocks, dmax = shards.local_blocks(gd) if shards is not None else ([slice(None)], None)
+    errs, colors = [], []
+    for sl in blocks:
+        depth, var, color, _ = render_rays(
+            params, ro[sl], rd[sl], gd[sl], tsdf_volume, tsdf_bnds, bound, "color", rcfg, grid_vjp=grid_vjp,
+            depth_max=dmax,
+        )
+        errs.append(torch.abs(gd[sl] - depth) / torch.sqrt(var.detach() + 1e-10))
+        colors.append(color)
     if handle_dynamic:
-        med = masked_lower_median(err.detach(), inside)
-        mask = (err < 10 * med) & (gd > 0) & inside
-    else:
-        mask = (gd > 0) & inside
-    loss = torch.sum(err * mask)
-    if use_color:
-        loss = loss + w_color_loss * torch.sum(torch.abs(gc - color) * mask[:, None])
+        if shards is None:
+            med = masked_lower_median(errs[0].detach(), inside)
+        else:
+            # the median of every in-bound ray's error, all blocks gathered
+            parts = [torch.stack([e.detach(), inside[sl].to(e.dtype)], dim=-1) for e, sl in zip(errs, blocks)]
+            full = shards.gather_rays(parts, ro.shape[0])
+            med = masked_lower_median(full[:, 0], full[:, 1] > 0)
+    loss = 0.0
+    for sl, err, color in zip(blocks, errs, colors):
+        mask = (gd[sl] > 0) & inside[sl]
+        if handle_dynamic:
+            mask = mask & (err < 10 * med)
+        loss = loss + torch.sum(err * mask)
+        if use_color:
+            loss = loss + w_color_loss * torch.sum(torch.abs(gc[sl] - color) * mask[:, None])
     return loss
 
 
@@ -107,6 +132,7 @@ def track_frame(
     pixel_idx: Optional[torch.Tensor] = None,
     grid_vjp: str = "halo",
     adam_lazy: bool = True,
+    shards=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Optimize the camera tensor for one frame; return the best candidate.
 
@@ -122,6 +148,9 @@ def track_frame(
         grid_vjp: the feature grids' gradient variant (the scene is read
             detached, so only its point gradient runs); adam_lazy: Adam's
             per-leaf lazy rule.
+        shards: the dp group (``tracking_loss_fn``); loss and gradient are
+            summed over it in one all-reduce, so every rank keeps the same
+            best candidate.
 
     Returns:
         best tensor (7,), losses (n_iters,), final tensor (7,), pre-step
@@ -160,9 +189,13 @@ def track_frame(
             assemble(cam_params), params, color_im, depth_im, tsdf_volume,
             tsdf_bnds, bound, cam, rcfg, batch_size, ignore_edge_W,
             ignore_edge_H, handle_dynamic, use_color, w_color_loss, generator,
-            None if pixel_idx is None else pixel_idx[it], grid_vjp,
+            None if pixel_idx is None else pixel_idx[it], grid_vjp, shards,
         )
-        grads = dict(zip(cam_params, torch.autograd.grad(loss, leaves)))
+        grads = list(torch.autograd.grad(loss, leaves))
+        if shards is not None:
+            reduced = shards.all_reduce([loss.detach().reshape(1)] + grads)
+            loss, grads = reduced[0][0], reduced[1:]
+        grads = dict(zip(cam_params, grads))
         with torch.no_grad():
             pre = assemble(cam_params).clone()
             adam_update(
@@ -178,8 +211,8 @@ def track_frame(
 
 
 class Tracker:
-    """Host-side tracking agent (ref: src/Tracker.py:150-274); ``grid_vjp``
-    and ``adam_lazy`` as in ``track_frame``."""
+    """Host-side tracking agent (ref: src/Tracker.py:150-274); ``grid_vjp``,
+    ``adam_lazy`` and ``shards`` (the dp group) as in ``track_frame``."""
 
     def __init__(
         self,
@@ -192,8 +225,10 @@ class Tracker:
         device: torch.device,
         grid_vjp: str = "halo",
         adam_lazy: bool = True,
+        shards=None,
     ):
         t = cfg["tracking"]
+        self.shards = shards
         self.grid_vjp = grid_vjp
         self.adam_lazy = adam_lazy
         self.cam = cam
@@ -256,7 +291,7 @@ class Tracker:
             self.tracking_pixels, self.num_cam_iters, self.ignore_edge_W,
             self.ignore_edge_H, self.handle_dynamic, self.use_color,
             self.w_color_loss, self.cam_lr, self.seperate_LR,
-            self.lr_final_factor, generator, pixel_idx, self.grid_vjp, self.adam_lazy,
+            self.lr_final_factor, generator, pixel_idx, self.grid_vjp, self.adam_lazy, self.shards,
         )
         if visualizer is not None and idx % visualizer.freq == 0:
             for it in range(0, self.num_cam_iters, visualizer.inside_freq):

@@ -2,9 +2,17 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
+
+
+def local_rank() -> int:
+    """This process's device index on its host: the launcher's
+    ``LOCAL_RANK``, else 0."""
+    return int(os.environ.get("LOCAL_RANK", "0"))
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -12,7 +20,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
     ``None`` means the card. The CPU is used only when asked for by name;
     asking for CUDA (explicitly or by default) on a machine without it
-    raises instead of silently running on the CPU.
+    raises instead of silently running on the CPU. In a process group
+    (``parallel/sharding.py``), a CUDA device without an index is this
+    rank's card, ``cuda:{LOCAL_RANK}``; a device named with its index is
+    kept.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -22,4 +33,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", local_rank())
     return dev

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-5, 7, 10, 12 and 13, one card
+    python3 chip_smoke.py                # phases 1-5, 7, 10, 12, 13 and 15, one card
     python3 chip_smoke.py --phases 1,2   # build + kernel checks only
     python3 chip_smoke.py --phases 1,8   # the room.yaml quality run
     python3 chip_smoke.py --phases 1,9   # the room_tracking.yaml quality run
@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,11  # room_tracking.yaml whole under loose
     python3 chip_smoke.py --phases 1,12,13  # the file-backed loaders and the tools
     python3 chip_smoke.py --phases 1,14  # the full decoder pretrain and its prior's gates
+    python3 chip_smoke.py --phases 1,15  # ray-axis data parallelism alone
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
@@ -35,7 +36,9 @@ Phases (each failure exits non-zero):
      16 and write checkpoint 00017;
   5. ``Renderer.render_img`` of the last mapped frame from the mapped scene
      (K2 on the path), then once more with the plain MLP: depth L1 against
-     the sensor depth for both, and the gap between the two renders;
+     the sensor depth for both, and the gap between the two renders; (b)
+     the same two renders with ``rendering.N_importance=16`` (the
+     resampled second pass through the same decoder path), same gate;
   6. (only on request) determinism: frame 0's mapping run twice with the
      default kernels and twice under ``torch.use_deterministic_algorithms``,
      compared bit for bit;
@@ -101,11 +104,26 @@ Phases (each failure exits non-zero):
      then the contract of tests/test_pretrained_prior.py on the card: p99
      |occ| under 1.9 with every feature channel kicked by +-0.5, and the
      first-frame low-stage loss at lr 0.5 below half within 80 iterations
-     and off the near-plane plateau.
+     and off the near-plane plateau;
+ 15. ray-axis data parallelism (``parallel/sharding.py``): (a) the entry
+     point's ``--multihost --init_only`` in a child, a world of one on NCCL;
+     (b) room_tracking.yaml with ``data.n_frames=6``, frames 0..5, strict,
+     loop closure as shipped, mapping at 100 / 20 iterations, the final
+     refine cut to 20 iterations a frame, ``parallel.enable=True``, as two
+     ranks on ``cuda:0`` over gloo, as one process, and as a witness (the
+     one process with every grid element moved by one ulp), at once,
+     under deterministic algorithms: the ranks' final scenes and
+     trajectories equal, finite losses, K1 in each rank, frame 0's first
+     30 map losses within 1e-3 relative of the single run, and frame 0's
+     map losses, the tracked and the refined trajectory each within
+     max(1e-3 / 5 mm, 10 x the witness's gap) of it; seconds by part
+     printed (no speed claim: the ranks share one card, gloo stages
+     through host memory). One card shows neither NCCL across devices nor
+     scaling.
 
-Every path (each timed variant of phase 3, phases 4, 5, 7, 8, 9, 10, 11, 12,
-13(b) and 14, and each of phase 10(a)'s three runs, counted in its child
-process) runs with
+Every path (each timed variant of phase 3, phases 4, 5, 5(b), 7, 8, 9, 10,
+11, 12, 13(b) and 14, each of phase 10(a)'s three runs and each of phase
+15(b)'s four processes, counted in its child process) runs with
 the launch counts set to 0 just before it and read just after; the
 ``kernels`` JSON line reports each kernel's launches over those paths with
 its error, time, plain time and bound. The last line is the contract's
@@ -147,6 +165,14 @@ REPLICA_END = 16  # phase 12: frames 0..15, mapped at 0, 5, 10 and 15 (every_fra
 COLOR_MEAN_GATE = 2.0 / 255  # phase 12-13: JPEG at OpenCV's default quality 95
 PRETRAIN_STEPS = 500  # phase 13(b): 500 of the tool's 6000
 REFUSE_RECALL_GATE, REFUSE_COMP_GATE = 0.95, 0.01  # phase 13(c): the GT re-fused covers what the poses see
+IMPORTANCE_N = 16  # phase 5(b): rendering.N_importance
+DP_END = 6  # phase 15(b): frames 0..5 (maps 0 and 5, the colour refine at 5, the last frame)
+DP_REFINE_ITERS = 20  # phase 15(b)'s final refine, cut from 100 as phase 10(b)'s
+# mapping cut from 1000 / 100 iterations to keep the phase near 90 s (1000: 246 s for three children);
+# at 100 / 20 the dp and single runs part after some 30 iterations, which the one-ulp witness tests
+DP_ITERS_FIRST, DP_ITERS = 100, 20
+DP_SET = ["data.n_frames=6", f"loop_closure.refine_iters={DP_REFINE_ITERS}", f"mapping.iters_first={DP_ITERS_FIRST}",
+          f"mapping.iters={DP_ITERS}", "parallel.enable=True"]
 
 
 def fail(msg: str) -> None:
@@ -743,16 +769,28 @@ def phase_entry_loose(torch, dev, strict):
     check_panels(slam, 0, ENTRY_END, "loose")
 
 
-def phase_render(torch, dev, slam):
+def phase_render(torch, dev, slam, n_importance: int = 0):
     """The last mapped frame rendered through K2, then once more with the
     plain MLP on the same map and pose. The map moves between runs (ROADMAP F2), so the depth
     L1 of one run says little about K2; the gap between the two renders is
-    K2's own. Fails if it shifts the mean depth by more than RENDER_GAP_M."""
+    K2's own. Fails if it shifts the mean depth by more than RENDER_GAP_M.
+    With ``n_importance`` (phase 5(b)) both renders resample each ray with
+    ``rendering.N_importance = n_importance`` points, both passes through the
+    same decoder path."""
+    import dataclasses
+
+    from attentive_dfprior_tpu_torch.render.renderer import Renderer
+
     last = ENTRY_END - 1
     _, color, depth, _ = slam.dataset[last]
     gt_d = torch.as_tensor(depth, device=dev)
     valid = gt_d > 0
     renderer = slam.renderer
+    label = "render"
+    if n_importance:
+        rcfg = dataclasses.replace(slam.rcfg, N_importance=n_importance)
+        renderer = Renderer(rcfg, slam.scene_cfg.bound, slam.tsdf_bnds, slam.cam, slam.device)
+        label = f"render N_importance={n_importance}"
     runs = {}
     for fused in (True, False):
         renderer.use_fused = fused
@@ -761,19 +799,19 @@ def phase_render(torch, dev, slam):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if not (torch.isfinite(d).all() and torch.isfinite(c).all()):
-            fail(f"render (fused={fused}): non-finite output")
+            fail(f"{label} (fused={fused}): non-finite output")
         l1 = float((d - gt_d).abs()[valid].mean())
         cl1 = float((c - torch.as_tensor(color, device=dev)).abs().mean())
-        print(f"render frame {last} ({tuple(d.shape)}, {'K2' if fused else 'plain MLP'}): {dt:.3f} s, "
+        print(f"{label} frame {last} ({tuple(d.shape)}, {'K2' if fused else 'plain MLP'}): {dt:.3f} s, "
               f"depth L1 {100 * l1:.3f} cm, color L1 {cl1:.4f}")
         runs[fused] = d, c
     renderer.use_fused = True
     (d, c), (dp, cp) = runs[True], runs[False]
     gap = float((d - dp).abs()[valid].mean())
-    print(f"render K2 vs plain MLP: depth mean abs {100 * gap:.2e} cm (max {100 * float((d - dp).abs().max()):.2e} cm), "
-          f"color max abs {float((c - cp).abs().max()):.2e}")
+    print(f"{label} K2 vs plain MLP: depth mean abs {100 * gap:.2e} cm (max {100 * float((d - dp).abs().max()):.2e} "
+          f"cm), color max abs {float((c - cp).abs().max()):.2e}")
     if gap > RENDER_GAP_M:
-        fail(f"render: K2 moves the mean depth {gap:.3e} m from the plain MLP's (limit {RENDER_GAP_M} m)")
+        fail(f"{label}: K2 moves the mean depth {gap:.3e} m from the plain MLP's (limit {RENDER_GAP_M} m)")
 
 
 def score_meshes(cfg, cam, meshes, gt_poses):
@@ -1342,9 +1380,102 @@ def phase_prior_gates(torch, dev, path: str) -> None:
         fail("prior: the first-frame low stage did not converge with the pretrained decoders")
 
 
+def phase_dp(torch, paths) -> None:
+    """Phase 15, ray-axis data parallelism. (a) the entry point's
+    ``--multihost --init_only`` in a child, a world of one on NCCL (the
+    launcher's variables set here), must print its line and exit 0. (b)
+    ``room_tracking.yaml`` with DP_SET to frame DP_END - 1 (strict, loop
+    closure as shipped) through ``SLAMSystem.run``, as two ranks on
+    ``cuda:0`` joined over gloo (NCCL refuses two ranks on one device), as
+    one process, and as the witness (the one process with every grid
+    element moved one ulp), all four children at once under deterministic
+    algorithms (``tools/multihost_smoke.py:slam_worker``). Fails unless the
+    ranks' final scene leaves and trajectories are equal, every loss is
+    finite, K1 ran in each rank, and ``multihost_smoke.compare_slam``'s
+    gates hold: frame 0's first MAP_AGREE_ITERS map losses within
+    MAP_LOSS_RTOL of the single run, and frame 0's map losses, the tracked
+    and the refined trajectory each within max(MAP_LOSS_RTOL or
+    TRAJ_GATE_M, WITNESS_FACTOR x the witness's gap). The seconds are no
+    speed claim: four processes share one card and gloo stages through
+    host memory."""
+    from attentive_dfprior_tpu_torch.tools import multihost_smoke as mh
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(mh.free_port()))
+    proc = subprocess.run([sys.executable, "-m", "attentive_dfprior_tpu_torch.run", ROOM_TRACKING, "--multihost",
+                           "--init_only"], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("multihost:")]
+    print(f"dp (a) run --multihost --init_only, world of one: exit {proc.returncode}, {lines}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or lines != ["multihost: process 0/1, backend nccl, device cuda:0"]:
+        fail(f"dp (a): --init_only on NCCL:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    rec = os.path.join(work, "slam")
+    spec = dict(config=os.path.relpath(ROOM_TRACKING, REPO), overrides=DP_SET, end_idx=DP_END, device="cuda:0",
+                backend="gloo", deterministic=True)
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # deterministic cuBLAS
+    t0 = time.perf_counter()
+    started = {
+        name: mh.start("slam", dict(spec, output=os.path.join(work, name), record=f"{rec}.{name}",
+                                    perturb_ulp=name == "witness"), world, env)
+        for name, world in (("dp", 2), ("single", 0), ("witness", 0))
+    }
+    results, errors = {}, []
+    for name, handle in started.items():  # finish stops its children, whatever happens
+        try:
+            results[name] = mh.finish(handle, timeout=900)
+        except RuntimeError as e:
+            errors.append(f"{name}: {e}")
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("dp (b): " + "\n".join(errors))
+    ranks, single, witness = results["dp"], results["single"][0], results["witness"][0]
+    for r in ranks:
+        paths[f"dp_rank{r['rank']}"] = r["launches"]
+    paths["dp_single"] = single["launches"]
+    paths["dp_witness"] = witness["launches"]
+    for tag, r in [(f"rank {r['rank']}/{r['world']}", r) for r in ranks] + [("single", single), ("witness", witness)]:
+        print(f"dp (b) {tag} on {r['device']}: seconds by part "
+              f"{json.dumps({k: round(v, 3) for k, v in r['seconds'].items()})}, launches {json.dumps(r['launches'])}, "
+              f"events {r['events']}")
+    cmp = mh.compare_slam(ranks, single, rec, witness)
+    a, b, w = (np.asarray(r["map_losses_frame0"]) for r in (ranks[0], single, witness))
+    picks = sorted({0, 1, 10, len(b) // 2, len(b) - 1} & set(range(len(b))))
+    print("dp (b) frame 0 map losses (iteration: 2 ranks / single / witness): "
+          + ", ".join(f"{i}: {a[i]:.6f} / {b[i]:.6f} / {w[i]:.6f}" for i in picks))
+    for name in ("dp_vs_single", "witness_vs_single"):
+        g = cmp[name]
+        print(f"dp (b) {name}: frame 0 max relative gap per 10 iterations "
+              + " ".join(f"{x:.1e}" for x in g["frame0_rel_per_10_iters"])
+              + f"; mm by frame, tracked {g['before_refine_diff_mm_by_frame']}, refined {g['traj_diff_mm_by_frame']}")
+    for name, r in (("dp", ranks[0]), ("witness", witness)):
+        gaps = []
+        for x, y in zip(r["track_iter_losses"], single["track_iter_losses"]):
+            q = np.abs(np.asarray(x) - np.asarray(y)) / np.maximum(np.abs(np.asarray(y)), 1e-12)
+            gaps.append(f"{float(q[0]):.1e}/{float(q.max()):.1e}")
+        print(f"dp (b) {name} tracking losses, relative gap to the single run per tracked frame "
+              f"(first iteration / max): " + " ".join(gaps))
+    print(f"dp (b) {' '.join(DP_SET)}, frames 0-{DP_END - 1}, gloo, deterministic: replicas equal "
+          f"{cmp['replicas_equal']} over {cmp['n_leaves']} leaves, finite {cmp['finite']}, unaligned ATE (mm) "
+          f"{json.dumps(cmp['ate_vs_gt_mm'])}; {wall:.1f} s for the four children")
+    print(f"dp (b) gates (dp's gap to the single run, the witness's, the limit): {json.dumps(cmp['gates'])}")
+    if not cmp["replicas_equal"]:
+        fail("dp (b): the two ranks' final scenes or trajectories differ")
+    if not cmp["finite"]:
+        fail("dp (b): a non-finite loss")
+    for key, g in cmp["gates"].items():
+        if not g["ok"]:
+            fail(f"dp (b): {key}: the dp run parts from the single run by {g['dp']:.4g} (witness {g['witness']}, "
+                 f"limit {g['limit']:.4g})")
+    if not all(r["dp"] for r in ranks) or any(r["launches"]["halo_fold"] <= 0 for r in ranks):
+        fail(f"dp (b): not both ranks ran dp mapping through K1: {[(r['dp'], r['launches']) for r in ranks]}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13,15",
                     help="comma-separated phases to run (6, 8, 9, 11 and 14 only on request)")
     ap.add_argument("--async-equal-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -1411,6 +1542,9 @@ def main() -> None:
             drive("render", phase_render, torch, dev, slam)
             if paths["render"]["decoder_mlp"] <= 0:
                 fail("the render launched no K2 (decoder MLP)")
+            drive("render_importance", phase_render, torch, dev, slam, IMPORTANCE_N)
+            if paths["render_importance"]["decoder_mlp"] <= 0:
+                fail("the resampled render launched no K2 (decoder MLP)")
             done(5)
         if 7 in phases:
             drive("mesh", phase_mesh, torch, dev, slam)
@@ -1449,6 +1583,9 @@ def main() -> None:
         phase_refuse(torch, dev, replica)
         phase_convert(torch, replica)
         done(13)
+    if 15 in phases:
+        phase_dp(torch, paths)
+        done(15)
     if 14 in phases:
         t0 = time.perf_counter()
         path, losses = drive("pretrain_full", phase_pretrain, torch, dev, 6000)

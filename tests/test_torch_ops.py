@@ -184,10 +184,17 @@ def test_renderer_render_img_matches_jax():
     got = tr.render_img(params_from_numpy(params), c2w, torch.tensor(tsdf), gt_depth=depth)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        TRen.render_rays(params_from_numpy(params), torch.zeros(2, 3), torch.ones(2, 3), torch.ones(2),
-                         torch.tensor(tsdf), torch.tensor(bound), torch.tensor(bound), "color",
-                         TRen.RenderConfig(N_importance=4))
+    # importance resampling renders too (tests/test_torch_importance.py
+    # holds it to the JAX package in full)
+    ro, rd, gd = np.zeros((2, 3), np.float32), np.ones((2, 3), np.float32), np.ones(2, np.float32)
+    ref4 = JRen.render_rays(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(ro), jnp.asarray(rd),
+                            jnp.asarray(gd), tsdf_to_rows(tsdf), jnp.asarray(bound), jnp.asarray(bound), "color",
+                            JRen.RenderConfig(N_importance=4))
+    got4 = TRen.render_rays(params_from_numpy(params), torch.tensor(ro), torch.tensor(rd), torch.tensor(gd),
+                            torch.tensor(tsdf), torch.tensor(bound), torch.tensor(bound), "color",
+                            TRen.RenderConfig(N_importance=4))
+    for a, b in zip(got4[:3], ref4[:3]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
 
 
 def test_renderer_eval_points_matches_jax():
@@ -303,5 +310,28 @@ def test_entry_points_refuse_missing_cuda_and_unported_modes(tmp_path):
         assert slam.sync_method == sync and slam.device.type == "cpu"
     with pytest.raises(ValueError, match="sync_method"):
         SLAMSystem(dict(cfg, sync_method="eager"), output=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Sharding"):
-        SLAMSystem(dict(cfg, parallel={"enable": True}), output=str(tmp_path), device="cpu")
+    # parallel.enable with no process group (fewer than 2 ranks) constructs
+    # and takes the single-device path, as the JAX mesh_from_config returns
+    # None below 2 devices
+    slam = SLAMSystem(dict(cfg, parallel={"enable": True}), output=str(tmp_path / "dp1"), device="cpu")
+    assert slam.shards is None and slam.mapper.shards is None and slam.tracker.shards is None
+    assert slam.is_rank0
+
+
+@pytest.mark.parametrize("case", ["split", "loose_on_2_ranks", "free_on_2_ranks"])
+def test_async_agents_under_dp_raise(tmp_path, monkeypatch, case):
+    """``parallel.split``, and ``loose`` / ``free`` on a dp group of 2 or
+    more ranks, raise naming their ROADMAP.md item (a 2-rank group stands
+    in for ``mesh_from_config``'s, no sockets needed)."""
+    from attentive_dfprior_tpu_torch.parallel.sharding import RayShards
+    from attentive_dfprior_tpu_torch.slam import system as sysmod
+    from test_torch_slam import tiny_room_cfg
+
+    cfg = tiny_room_cfg()
+    if case == "split":
+        cfg = dict(cfg, sync_method="loose", parallel={"enable": True, "split": {"map": 1, "track": 1}})
+    else:
+        monkeypatch.setattr(sysmod, "mesh_from_config", lambda c: RayShards(size=2, ranks=(0,)))
+        cfg = dict(cfg, sync_method=case.split("_")[0], parallel={"enable": True})
+    with pytest.raises(NotImplementedError, match="Sharding: the async agents"):
+        sysmod.SLAMSystem(cfg, output=str(tmp_path), device="cpu")
