@@ -22,6 +22,24 @@ explicit:
 process group, or every block of ``size`` in one process with no group at
 all, which is how the tests hold the shard arithmetic to the unsharded step
 without sockets.
+
+The async agents (``sync_method: loose | free``) issue collectives from two
+threads, so they get groups of their own (``AgentGroups``):
+
+  - on a shared dp group (``shared_groups``) the mapper and the tracker
+    each sum over a group of its own over the same ranks: ``torch.distributed``
+    matches a group's collectives by the order of the calls, so two threads on
+    one group would sum each other's buffers. ``slam/schedule.py`` orders the
+    two agents' units the same way on every rank;
+  - ``parallel.split`` (``split_groups_from_config``, the JAX
+    ``split_meshes_from_config``) gives the mapper the first ``map`` ranks and
+    the tracker the next ``track``, each with its own dp group, and a publish
+    group (map rank 0 and every track rank) over which the scene is
+    broadcast.
+
+``dist.new_group`` is collective over the whole world: every rank builds
+every group, in the same order, from the main thread, before any worker
+thread starts (``SLAMSystem.__init__``).
 """
 
 from __future__ import annotations
@@ -38,7 +56,6 @@ from attentive_dfprior_tpu_torch.render.renderer import RenderConfig
 from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, build_lr_tree, mapping_step
 from attentive_dfprior_tpu_torch.utils.device import local_rank
 
-ASYNC_ITEM = "'Sharding: the async agents'"  # the ROADMAP.md item of the async agents under dp
 GROUP_TIMEOUT_S = 600.0  # a collective that waits longer than this fails the process group
 
 
@@ -176,6 +193,110 @@ def mesh_from_config(cfg: Optional[Dict[str, Any]]) -> Optional[RayShards]:
     if world < 2:
         return None
     return RayShards(size=world, ranks=(dist.get_rank(),), group=dist.group.WORLD)
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentGroups:
+    """The async agents' groups on this rank.
+
+    Attributes:
+        role: ``"map"`` or ``"track"`` under ``parallel.split``; ``"shared"``
+            on a shared dp group, where every rank runs both agents.
+        map: the mapper's sums (mapping, BA, loop closure's relaxation), or
+            None where this rank does not map or maps alone.
+        track: the tracker's sums (tracking, the final refine), or None
+            where this rank does not track or tracks alone.
+        world: every rank, for the set-up's ``replicate``.
+        map_ranks, track_ranks: global ranks of the two agents.
+        publish: split only: the group of map rank 0 and every track rank.
+    """
+
+    role: str
+    map: Optional[RayShards]
+    track: Optional[RayShards]
+    world: RayShards
+    map_ranks: Tuple[int, ...]
+    track_ranks: Tuple[int, ...]
+    publish: Any = None
+
+    @property
+    def lead(self) -> int:
+        """The rank that takes the schedule's decisions (``slam/schedule.py``):
+        rank 0 on a shared group, the first track rank under split."""
+        return self.track_ranks[0] if self.role != "shared" else 0
+
+
+def _new_group(ranks: Sequence[int]) -> Optional[RayShards]:
+    """A group over ``ranks`` (built on every rank, ``dist.new_group`` is
+    collective); this rank's ``RayShards`` over it, or None where this rank
+    is not in it or it has a single rank (no dp arithmetic at all)."""
+    group = dist.new_group(list(ranks), timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    rank = dist.get_rank()
+    if rank not in ranks or len(ranks) < 2:
+        return None
+    return RayShards(size=len(ranks), ranks=(list(ranks).index(rank),), group=group)
+
+
+def split_counts(cfg: Optional[Dict[str, Any]], world: int) -> Optional[Tuple[int, int]]:
+    """The (map, track) rank counts of ``parallel.split`` in a world of
+    ``world`` processes, or None when not configured; raises where the JAX
+    ``split_meshes_from_config`` raises (``map`` or ``track`` below 1, more
+    ranks than devices) and also when ``map + track`` is smaller than the
+    world, since one process drives one device."""
+    p = (cfg or {}).get("parallel") or {}
+    split = p.get("split")
+    if not p or not bool(p.get("enable", False)) or not split:
+        return None
+    k, m = int(split.get("map", 0)), int(split.get("track", 0))
+    if k < 1 or m < 1:
+        raise ValueError(f"parallel.split needs map>=1 and track>=1, got {split}")
+    if k + m > world:
+        raise ValueError(f"parallel.split map={k}+track={m} exceeds {world} devices")
+    if k + m < world:
+        raise ValueError(
+            f"parallel.split map={k}+track={m} but {world} processes take part: one process drives one "
+            f"device, so launch {k + m} processes"
+        )
+    return k, m
+
+
+def split_groups_from_config(cfg: Optional[Dict[str, Any]]) -> Optional[AgentGroups]:
+    """Disjoint mapper and tracker groups from ``parallel.split`` (the JAX
+    ``split_meshes_from_config``):
+
+        parallel:
+          enable: True
+          split: {map: 1, track: 1}   # global ranks [0, map) map, the next track track
+
+    Returns None when not configured. Builds the map group, the track group
+    and the publish group (map rank 0 and every track rank), in that order,
+    on every rank."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    counts = split_counts(cfg, world)
+    if counts is None:
+        return None
+    k, m = counts
+    map_ranks, track_ranks = tuple(range(k)), tuple(range(k, k + m))
+    map_shards, track_shards = _new_group(map_ranks), _new_group(track_ranks)
+    publish = dist.new_group([0, *track_ranks], timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    rank = dist.get_rank()
+    world_shards = RayShards(size=world, ranks=(rank,), group=dist.group.WORLD)
+    return AgentGroups("map" if rank < k else "track", map_shards, track_shards, world_shards, map_ranks,
+                       track_ranks, publish)
+
+
+def shared_groups(shards: RayShards) -> AgentGroups:
+    """The async agents on the shared dp group ``shards``: the mapper and
+    the tracker each get a group of their own over the same ranks (two
+    threads never issue collectives on one group). Needs the process group
+    the ranks joined."""
+    if shards.group is None or not dist.is_initialized():
+        raise ValueError(
+            f"loose / free on a dp group of {shards.size} ranks needs the process group the ranks joined "
+            "(parallel/sharding.py:init_distributed)"
+        )
+    ranks = tuple(range(dist.get_world_size()))
+    return AgentGroups("shared", _new_group(ranks), _new_group(ranks), shards, ranks, ranks)
 
 
 def replicate(tensors: Sequence[torch.Tensor], shards: Optional[RayShards], src: int = 0) -> None:

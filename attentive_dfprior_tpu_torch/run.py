@@ -6,8 +6,11 @@ Usage:
         [--device cuda|cuda:N|cpu] [--grid-vjp halo|bitfold|cellstencil|xla|sorted|pallas]
         [--adam-nonlazy] [--multihost] [--init_only] [--set key.sub=value ...]
 
-    # ray-axis data parallelism over N cards of one host
+    # ray-axis data parallelism over N cards of one host (strict, loose or free)
     torchrun --nproc_per_node N -m attentive_dfprior_tpu_torch.run <cfg> --set parallel.enable=true
+    # the mapper on the first k cards, the tracker on the next m (loose or free)
+    torchrun --nproc_per_node k+m -m attentive_dfprior_tpu_torch.run <cfg> --set sync_method=loose \
+        --set parallel.enable=true --set parallel.split.map=k --set parallel.split.track=m
 
 Runs on the card unless ``--device cpu`` is given; in a process group,
 ``cuda`` is this rank's card, ``cuda:{LOCAL_RANK}``. ``--resume`` continues

@@ -21,10 +21,12 @@ Frame 0, whose pose is ground truth by construction (ref:
 src/Tracker.py:186-188), is never moved. Re-localization reads the scene
 detached, so it launches neither K1 nor K2.
 
-Under ray-axis data parallelism re-localization runs ``track_frame`` on the
-tracker's dp group. Its decisions (the overlap scores, the ``min_gap``
-keyframes, the relaxation interval) come from replicated state, so every
-rank takes the same branch and issues the same collectives.
+Under ray-axis data parallelism re-localization runs ``track_frame`` on a
+dp group: the final refine on the tracker's, the relaxation on the group
+its caller names (the mapper's in the async modes, which relax on the
+mapper's thread or ranks). Its decisions (the overlap scores, the
+``min_gap`` keyframes, the relaxation interval) come from replicated state,
+so every rank takes the same branch and issues the same collectives.
 """
 
 from __future__ import annotations
@@ -138,9 +140,11 @@ class LoopCloser:
         n_iters: int,
         generator: Optional[torch.Generator] = None,
         pixel_idx: Optional[torch.Tensor] = None,
+        shards=None,
     ):
-        """One frozen-map re-localization from ``init_c2w``; returns
-        (c2w (4, 4) float32, per-iteration losses)."""
+        """One frozen-map re-localization from ``init_c2w`` on ``shards``
+        (default: the tracker's dp group); returns (c2w (4, 4) float32,
+        per-iteration losses)."""
         t = self.tracker
         dev = t.device
         cam_tensor = torch.as_tensor(pose_tensor_from_matrix(init_c2w), device=dev)
@@ -152,7 +156,8 @@ class LoopCloser:
             t.tracking_pixels, int(n_iters), t.ignore_edge_W, t.ignore_edge_H,
             t.handle_dynamic, t.use_color, t.w_color_loss,
             float(self.lr) if self.lr is not None else t.cam_lr,
-            t.seperate_LR, t.lr_final_factor, generator, pixel_idx, t.grid_vjp, t.adam_lazy, t.shards,
+            t.seperate_LR, t.lr_final_factor, generator, pixel_idx, t.grid_vjp, t.adam_lazy,
+            t.shards if shards is None else shards,
         )
         with torch.no_grad():
             c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()
@@ -191,11 +196,14 @@ class LoopCloser:
         generator: Optional[torch.Generator] = None,
         pixel_idx: Optional[Dict[int, torch.Tensor]] = None,
         kf_lock=None,
+        shards=None,
     ) -> bool:
         """Revisit-gated keyframe relaxation (mechanism 1); returns whether
         it ran. ``pixel_idx``: optional {keyframe slot: (iters, pixels)}.
         ``kf_lock``: held around the keyframe poses' read and write (the
-        async modes' main thread reads them for its side outputs)."""
+        async modes' main thread reads them for its side outputs).
+        ``shards``: the dp group of the re-localizations (default: the
+        tracker's)."""
         if not self.enable or idx - self._last_relax < self.every:
             return False
         hit = self.detect_revisit(idx, depth_np, c2w)
@@ -216,7 +224,7 @@ class LoopCloser:
                 continue  # ground truth by construction
             ref, _ = self._relocalize(
                 params, self.keyframes.color[slot], self.keyframes.depth[slot], old_poses[slot], n_it,
-                generator, None if pixel_idx is None else pixel_idx[slot],
+                generator, None if pixel_idx is None else pixel_idx[slot], shards,
             )
             new_poses[slot] = clamp_pose_update(old_poses[slot], ref, self.max_dt, max_rot)
             if not np.allclose(new_poses[slot], old_poses[slot]):

@@ -31,15 +31,19 @@ Visualizers write rendered-vs-input panels (``mapping_vis/``,
 continues from it.
 
 ``parallel.enable`` in a process group of 2 or more ranks
-(``parallel/sharding.py``) runs strict mode as ray-axis data parallelism:
-each rank drives one card (``cuda:{LOCAL_RANK}`` or the device named), the
-scene and the priors are broadcast from rank 0 after set-up, every rank
+(``parallel/sharding.py``) runs ray-axis data parallelism: each rank drives
+one card (``cuda:{LOCAL_RANK}`` or the device named), the scene and the
+priors are broadcast from rank 0 after set-up, and rank 0 alone writes the
+side outputs, the panels and ``metrics.jsonl``. In strict mode every rank
 runs the same loop and issues the same collectives in the same order
-(mapping, BA, tracking and loop closure each sum over the group), and rank
-0 alone writes the side outputs, the panels and ``metrics.jsonl``. Below 2
-ranks the single-device path runs unchanged. Not in this port yet (raises
-``NotImplementedError`` naming its ROADMAP.md item): ``parallel.split``,
-and ``loose`` / ``free`` on a group of 2 or more ranks.
+(mapping, BA, tracking and loop closure each sum over the group). In
+``loose`` / ``free`` every rank runs both agents, each summing over a group
+of its own, and rank 0 decides the schedule that the other ranks replay
+(``slam/schedule.py``). ``parallel.split: {map: k, track: m}`` puts the
+mapper on ranks [0, k) and the tracker on the next m (``_run_split``): the
+first track rank leads, sends the map jobs and writes the side outputs, and
+map rank 0 publishes the scene by broadcast. Below 2 ranks the
+single-device path runs unchanged.
 """
 
 from __future__ import annotations
@@ -60,11 +64,17 @@ from attentive_dfprior_tpu_torch.camera import Camera
 from attentive_dfprior_tpu_torch.models.scene import SceneConfig, init_scene
 from attentive_dfprior_tpu_torch.ops.grid_sample import grid_sampler
 from attentive_dfprior_tpu_torch.ops.pose import clamp_pose_update
-from attentive_dfprior_tpu_torch.parallel.sharding import ASYNC_ITEM, mesh_from_config, replicate
+from attentive_dfprior_tpu_torch.parallel.sharding import (
+    mesh_from_config,
+    replicate,
+    shared_groups,
+    split_groups_from_config,
+)
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, Renderer
 from attentive_dfprior_tpu_torch.slam.keyframes import KeyframeStore, keyframe_selection_overlap
 from attentive_dfprior_tpu_torch.slam.loop_closure import LoopCloser
 from attentive_dfprior_tpu_torch.slam.mapper import Mapper
+from attentive_dfprior_tpu_torch.slam.schedule import Channel, Peers, UnitSchedule, open_store
 from attentive_dfprior_tpu_torch.slam.tracker import Tracker
 from attentive_dfprior_tpu_torch.tsdf.fusion import fill_unobserved_volume, legacy_observed_mask
 from attentive_dfprior_tpu_torch.utils.datasets import get_dataset
@@ -72,17 +82,14 @@ from attentive_dfprior_tpu_torch.utils.device import resolve_device
 from attentive_dfprior_tpu_torch.utils.logger import Logger, load_checkpoint
 from attentive_dfprior_tpu_torch.utils.mesher import Mesher
 from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer
-from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
+from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 from attentive_dfprior_tpu_torch.utils.visualizer import Visualizer
 
 SYNC_METHODS = ("strict", "loose", "free")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to attentive_dfprior_tpu_torch yet "
-        f"(ROADMAP.md, 'Modules to port': {item})"
-    )
+SPLIT_NEEDS_ASYNC = (  # the JAX package's text (slam/system.py:229-233)
+    "parallel.split requires sync_method 'loose' or 'free': strict mode serializes the agents, so split "
+    "devices would only idle (and side outputs would mix meshes)"
+)
 
 
 def load_tsdf_volume(cfg: Dict[str, Any], args=None, device=None):
@@ -184,15 +191,29 @@ class SLAMSystem:
         self.sync_method = str(cfg.get("sync_method", "strict"))
         if self.sync_method not in SYNC_METHODS:
             raise ValueError(f"sync_method {self.sync_method!r} is not one of {SYNC_METHODS}")
-        par = cfg.get("parallel") or {}
-        if bool(par.get("enable", False)) and par.get("split"):
-            raise _not_ported("parallel.split (the device-split async agents)", ASYNC_ITEM)
+        # the async agents' groups: parallel.split's disjoint ranks (raises as
+        # the JAX split_meshes_from_config does), or two groups over a shared
+        # dp group; every rank builds every group here, before any thread starts
+        self.groups = split_groups_from_config(cfg)
+        if self.groups is not None and self.sync_method == "strict":
+            raise ValueError(SPLIT_NEEDS_ASYNC)
         # the dp group, or None: the single-device path (fewer than 2 ranks)
-        self.shards = mesh_from_config(cfg)
+        self.shards = mesh_from_config(cfg) if self.groups is None else None
         if self.shards is not None and self.sync_method != "strict":
-            raise _not_ported(f"sync_method {self.sync_method!r} on a dp group of {self.shards.size} ranks", ASYNC_ITEM)
-        # side outputs, panels and metrics.jsonl: rank 0 of a process group
-        self.is_rank0 = not dist.is_initialized() or dist.get_rank() == 0
+            self.groups = shared_groups(self.shards)
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        # mapping panels: rank 0 (map rank 0 under split); side outputs,
+        # tracking panels and metrics.jsonl: the writer, rank 0 or the track lead
+        self.is_rank0 = self.rank == 0
+        self.is_writer = self.rank == (self.groups.lead if self.groups is not None else 0)
+        self.role = self.groups.role if self.groups is not None else ("dp" if self.shards is not None else "single")
+        # the schedule's store (slam/schedule.py), one prefix per run
+        self._store = open_store() if self.groups is not None else None
+        self._runs = 0
+        # the last async run's decision log as this rank appended or replayed it
+        self.schedule_records: list = []
+        # a split map rank's records for the writer, sent with each map job's result
+        self._outbox: Optional[list] = None
 
         self.verbose = bool(cfg.get("verbose", False))
         self.output = output or (getattr(args, "output", None) or cfg["data"]["output"])
@@ -209,7 +230,9 @@ class SLAMSystem:
         # configs/df_prior.yaml
         tcfg = cfg.get("tsdf", {})
         self.tsdf_volume_track = self.tsdf_volume
-        self.tsdf_volume_mesh = self._filled(observed, str(tcfg.get("fill_unobserved", "free")))
+        # a split map rank never meshes
+        self.tsdf_volume_mesh = (None if self.role == "map"
+                                 else self._filled(observed, str(tcfg.get("fill_unobserved", "free"))))
         self.tsdf_volume = self._filled(observed, str(tcfg.get("fill_unobserved_train", "reference")))
 
         # --- scene state ---
@@ -217,12 +240,15 @@ class SLAMSystem:
         self.scene_cfg = SceneConfig.from_config(cfg, pretrained_loaded=pretrained is not None)
         self.seed = int(cfg.get("seed", 0))
         self.params = init_scene(torch.Generator().manual_seed(self.seed), self.scene_cfg, pretrained, self.device)
-        if self.shards is not None:
+        world = self.shards if self.groups is None else self.groups.world
+        if world is not None:
             # one scene and one prior, rank 0's, whatever each rank's set-up
             # computed (the fusion's atomic adds); the mesh prior is rank 0's
-            replicate(tree_leaves(self.params), self.shards)
+            replicate(tree_leaves(self.params), world)
             for vol in {id(v): v for v in (self.tsdf_volume_track, self.tsdf_volume)}.values():
-                replicate([vol], self.shards)
+                replicate([vol], world)
+        if self.role == "track" and self.tsdf_volume is not self.tsdf_volume_track:
+            self.tsdf_volume = None  # a split track rank never maps
         # pixel draws (the class docstring): the mapper's, and in strict
         # mode the tracker's; an async run sets the tracker's own
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
@@ -240,11 +266,11 @@ class SLAMSystem:
         self.renderer = Renderer(self.rcfg, self.scene_cfg.bound, self.tsdf_bnds, self.cam, self.device)
         self.mapper = Mapper(
             cfg, self.cam, self.scene_cfg, self.rcfg, self.tsdf_volume, self.tsdf_bnds, self.device,
-            grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards,
+            grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards if self.groups is None else self.groups.map,
         )
         self.tracker = Tracker(
             cfg, self.cam, self.rcfg, self.scene_cfg.bound, self.tsdf_volume_track, self.tsdf_bnds, self.device,
-            grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards,
+            grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards if self.groups is None else self.groups.track,
         )
         self.mesher = Mesher(cfg, self.cam, self.scene_cfg.bound, self.tsdf_bnds, self.device)
         self.logger = Logger(os.path.join(self.output, "ckpts"), self.verbose)
@@ -303,9 +329,12 @@ class SLAMSystem:
         self._kf_lock = threading.Lock()
 
     def _log_metrics(self, record: Dict[str, Any]) -> None:
-        if not self.is_rank0:
-            return
         record.setdefault("t", round(time.time(), 4))
+        if self._outbox is not None:
+            self._outbox.append(record)
+            return
+        if not self.is_writer:
+            return
         with self._log_lock, open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -484,7 +513,7 @@ class SLAMSystem:
             with self.profiler.phase("loop"):
                 self.loop_closer.maybe_relax(
                     idx, np.asarray(depth), c2w, self.estimate_c2w_list, self.params, self.generator,
-                    kf_lock=self._kf_lock,
+                    kf_lock=self._kf_lock, shards=self.mapper.shards,
                 )
         if self.verbose:
             print(f"Mapping frame {idx}  losses={losses}")
@@ -504,7 +533,7 @@ class SLAMSystem:
             c2w, loss = t.track(
                 self.params if params is None else params, idx, self._to_device(color), self._to_device(depth),
                 gt_c2w, self.estimate_c2w_list, generator=self.track_generator,
-                visualizer=self.tracking_visualizer if self.is_rank0 else None,
+                visualizer=self.tracking_visualizer if self.is_writer else None,
             )
         self.estimate_c2w_list[idx] = c2w
         if self.verbose:
@@ -513,14 +542,19 @@ class SLAMSystem:
 
     # ------------------------------------------------------------------
 
-    def run(self, start_idx: int = 0, end_idx: Optional[int] = None) -> np.ndarray:
+    def run(self, start_idx: int = 0, end_idx: Optional[int] = None,
+            schedule: Optional[UnitSchedule] = None) -> np.ndarray:
         """The SLAM loop over frames [start_idx, end_idx) in the configured
         ``sync_method``; returns the estimated trajectory (n_img, 4, 4).
         ``start_idx`` > 0 continues a run restored by ``resume``.
 
         strict: mapping of frame i completes before tracking i+1, the
-        reference's serialized schedule. loose / free: ``_run_async``.
-        The profiler's ``run`` phase is the wall time of the call.
+        reference's serialized schedule. loose / free: ``_run_async``, or
+        ``_run_split`` under ``parallel.split``. ``schedule``: the decision
+        log a loose / free run follows (``slam/schedule.py``); on a shared
+        dp group one is opened with rank 0 leading, and on one device none
+        runs unless given. The profiler's ``run`` phase is the wall time of
+        the call.
         """
         n = self.n_img if end_idx is None else min(end_idx, self.n_img)
         stop_at = self.cfg["mapping"].get("stop_at_frame")
@@ -530,8 +564,10 @@ class SLAMSystem:
             self.dataset.prefetch(range(start_idx, n))
             if self.sync_method == "strict":
                 self._run_strict(start_idx, n)
+            elif self.role in ("map", "track"):
+                self._run_split(start_idx, n, self.sync_method)
             else:
-                self._run_async(start_idx, n, self.sync_method)
+                self._run_async(start_idx, n, self.sync_method, schedule)
         return self.estimate_c2w_list
 
     def _run_strict(self, start_idx: int, n: int) -> None:
@@ -569,167 +605,232 @@ class SLAMSystem:
         self._sync_stream()
         return snap
 
-    def _run_async(self, start_idx: int, n: int, sync: str) -> None:
-        """loose / free: a mapper worker thread and published scene
-        snapshots (the JAX package's ``_run_async``, same protocol).
+    def _run_store(self):
+        """This run's part of the schedule's store."""
+        self._runs += 1
+        return dist.PrefixStore(f"run{self._runs}", self._store)
 
-        The main thread reads each frame, tracks it on the latest published
-        snapshot and queues a mapping job for every frame strict mode
-        maps; the worker maps, then publishes a fresh snapshot, or skips
-        the publish (``publish_skip``) while the tracker has not read the
-        last one and it is less than ``2 * every_frame`` frames old. Both
-        modes wait for frame 0's map; ``loose`` also waits until the last
-        mapped frame is at most ``every_frame + every_frame // 2`` frames
-        behind. At the last frame the main thread waits for its map,
-        publishes a snapshot of the final map if the worker skipped it, and
+    def _run_async(self, start_idx: int, n: int, sync: str, sched: Optional[UnitSchedule] = None,
+                   mapper: Optional["_MapperLink"] = None) -> None:
+        """loose / free: the tracker on this thread, on the latest scene
+        snapshot the mapper published (the JAX package's ``_run_async``,
+        same protocol).
+
+        This thread reads each frame, tracks it on the latest published
+        snapshot and hands the mapper every frame strict mode maps. The
+        mapper maps it, then publishes a fresh snapshot, or skips the
+        publish (``publish_skip``) while the tracker has not read the last
+        one and it is less than ``2 * every_frame`` frames old
+        (``_MapperLink.publishes``). Both modes wait for frame 0's map;
+        ``loose`` also waits until the last mapped frame is at most
+        ``every_frame + every_frame // 2`` frames behind. At the last frame
+        this thread waits for its map, has a snapshot of the final map
+        published if the last publish was skipped (the stale fix-up), and
         runs the final refine and the side outputs on it.
 
-        On the card the worker runs on a CUDA stream of its own, so the two
-        agents' kernels can overlap. The hand-offs are ordered: the worker
-        synchronizes its stream before it publishes a snapshot and before it
-        releases the keyframe lock after a write, and the main thread
-        records its stream on every snapshot leaf it reads, so the caching
-        allocator does not reuse a snapshot's memory while the tracker's
-        kernels may still read it. A worker exception is raised again in
-        the main thread.
+        ``mapper``: where the maps run. By default a worker thread of this
+        process (``_LocalMapper``); on the card it has a CUDA stream of its
+        own, so the two agents' kernels can overlap. Under
+        ``parallel.split`` the map ranks (``_RemoteMapper``). A mapper
+        failure is raised again here.
+
+        With ``sched`` (a shared dp group opens one, rank 0 leading; a split
+        run's track ranks one, the track lead leading) the units run one at
+        a time in the lead's order: the tracking of a frame with the
+        snapshot it reads, the stale fix-up, and on a shared group each map
+        job with its publish or skip, decided when it is granted. The lead
+        waits on the gates above; a follower waits on the log alone, and
+        checks that the snapshot it reads is the one the lead read. A
+        failure on any rank fails every rank (``Peers``).
         """
-        cuda = self.device.type == "cuda"
-        map_stream = torch.cuda.Stream(self.device) if cuda else None
-        if cuda:
-            # the worker's first job reads what this thread wrote (the
-            # initial or resumed scene, the priors, the keyframe store)
-            map_stream.wait_stream(torch.cuda.current_stream(self.device))
-        jobs: "queue.Queue" = queue.Queue()
-        # the seed snapshot is a copy too: on resume the tracker starts from
-        # it while the first map job already updates self.params in place
-        state = {
-            "published": self._snapshot_for_tracker(),
-            # resume: everything before start_idx counts as mapped, so the
-            # loose staleness gate can make progress
-            "last_mapped": start_idx - 1,
-            "published_idx": start_idx - 1,
-            "consumed": True,  # has the tracker read the current snapshot?
-            "error": None,
-        }
-        pub_cv = threading.Condition()
+        if mapper is None:
+            if sched is None and self.groups is not None:
+                store = self._run_store()
+                sched = UnitSchedule(store, Peers(store, self.rank, self.groups.map_ranks),
+                                     lead=self.rank == self.groups.lead, sync=self._sync_stream)
+            mapper = _LocalMapper(self, start_idx, sched)
+        lead = sched is None or sched.lead
+        self.schedule_records = sched.records if sched is not None else []
         self._track_generator = torch.Generator(device=self.device).manual_seed(self.seed + 2)
-
-        def mapper_worker():
-            try:
-                stream_ctx = torch.cuda.stream(map_stream) if cuda else contextlib.nullcontext()
-                with stream_ctx:
-                    while True:
-                        job = jobs.get()
-                        if job is None:
-                            return
-                        midx, mcolor, mdepth, mgt, first = job
-                        self._map_frame(midx, mcolor, mdepth, self.estimate_c2w_list[midx], mgt, first=first)
-                        self._sync_stream()  # the map job's work is done before anyone reads it
-                        # publish on demand: if the tracker never read the
-                        # last snapshot, keep it (one map staler) unless it
-                        # would fall 2 * every_frame frames behind
-                        with pub_cv:
-                            skip = not state["consumed"] and midx - state["published_idx"] < 2 * self.every_frame
-                            if skip:
-                                state["last_mapped"] = midx
-                                pub_cv.notify_all()
-                        if skip:
-                            self._log_metrics({"event": "publish_skip", "idx": int(midx)})
-                            continue
-                        t0 = time.time()
-                        snap = self._snapshot_for_tracker()
-                        publish_s = time.time() - t0
-                        with pub_cv:
-                            state["published"] = snap
-                            state["published_idx"] = midx
-                            state["consumed"] = False
-                            state["last_mapped"] = midx
-                            pub_cv.notify_all()
-                        self._log_metrics({"event": "publish", "idx": int(midx), "publish_s": round(publish_s, 4)})
-            except BaseException as e:  # surfaced in the main thread
-                with pub_cv:
-                    state["error"] = e
-                    pub_cv.notify_all()
-
-        worker = threading.Thread(target=mapper_worker, name="mapper", daemon=True)
-        worker.start()
         # loose staleness bound (role of ref: src/Tracker.py:176-181)
         max_lag = self.every_frame + self.every_frame // 2
 
-        def wait_until(cond):
-            with pub_cv:
-                while not cond() and state["error"] is None:
-                    pub_cv.wait(timeout=0.05)
-                if state["error"] is not None:
-                    raise state["error"]
+        def gate(cond) -> None:
+            """The lead's gates; a follower's order comes from the log."""
+            mapper.wait(cond if lead else (lambda: True))
 
-        def snapshot():
-            """The latest snapshot, marked read, its leaves recorded on
-            this thread's stream."""
-            with pub_cv:
-                if state["error"] is not None:
-                    raise state["error"]
-                state["consumed"] = True
-                snap = state["published"]
-            if cuda:
-                here = torch.cuda.current_stream(self.device)
-                for leaf in tree_leaves(snap):
-                    leaf.record_stream(here)
-            return snap
+        @contextlib.contextmanager
+        def grant(kind: str, idx: int, decide):
+            if sched is None:
+                yield decide()
+                return
+            with sched.unit(kind, idx, lambda: mapper.decision(decide)) as rec:
+                mapper.enter(rec)
+                yield rec
 
+        ok = False
         try:
             for idx in range(start_idx, n):
                 _, color, depth, gt_c2w = self.dataset[idx]
                 self.gt_c2w_list[idx] = gt_c2w
                 if idx == 0:
                     self.estimate_c2w_list[0] = gt_c2w
-                    jobs.put((0, color, depth, gt_c2w, True))
+                    mapper.submit(0, color, depth, gt_c2w, True)
                     # both modes wait for the first map before tracking
                     # (ref: src/Tracker.py:277-281)
-                    wait_until(lambda: state["last_mapped"] >= 0)
+                    gate(lambda: mapper.last_mapped >= 0)
                 else:
                     if sync == "loose":
-                        wait_until(lambda: state["last_mapped"] >= idx - max_lag)
-                    self._track_frame(idx, color, depth, gt_c2w, params=snapshot())
+                        gate(lambda: mapper.last_mapped >= idx - max_lag)
+                    with grant("track", idx, lambda: {"read": mapper.published_idx}) as rec:
+                        snap = mapper.snapshot(rec["read"] if sched is not None else None)
+                        self._track_frame(idx, color, depth, gt_c2w, params=snap)
                     if not np.isfinite(gt_c2w).all():
                         continue
                     if idx % self.every_frame == 0 or idx == n - 1:
-                        jobs.put((idx, color, depth, gt_c2w, False))
+                        mapper.submit(idx, color, depth, gt_c2w, False)
                         if idx == n - 1:  # the last frame: complete the map
-                            wait_until(lambda: state["last_mapped"] >= idx)
-                            with pub_cv:
-                                stale = state["published_idx"] < state["last_mapped"]
-                            if stale:
-                                # the worker skipped the last publish and is
-                                # idle (no job pending): snapshot the final map
-                                snap = self._snapshot_for_tracker()
-                                with pub_cv:
-                                    state["published"] = snap
-                                    state["published_idx"] = idx
-                                    state["consumed"] = False
+                            gate(lambda: mapper.last_mapped >= idx)
+                            with grant("final", idx,
+                                       lambda: {"stale": mapper.published_idx < mapper.last_mapped}) as rec:
+                                if rec["stale"]:
+                                    # the last publish was skipped and the mapper is
+                                    # idle (no job pending): publish the final map
+                                    mapper.fix_stale(idx)
                 if idx == n - 1 and self.loop_closer.final_refine_on:
-                    # the worker is idle here, so the published snapshot is final
+                    # the mapper is idle here, so the newest snapshot is final
                     with self.profiler.phase("loop"):
                         self.loop_closer.final_refine(
-                            self.dataset, self.estimate_c2w_list, snapshot(), start_idx, n, self.track_generator
+                            self.dataset, self.estimate_c2w_list, mapper.snapshot(), start_idx, n,
+                            self.track_generator,
                         )
                 self.last_idx = idx
-                self._side_outputs(idx, n, params=snapshot())
+                if self.is_writer:
+                    self._side_outputs(idx, n, params=mapper.snapshot())
+            ok = True
+        except BaseException as e:
+            err = mapper.fail(e)
+            if err is not e:
+                raise err from e
+            raise
         finally:
-            jobs.put(None)
-            worker.join(timeout=600)
+            mapper.close(ok)
             self._track_generator = None
-        if worker.is_alive():
-            raise RuntimeError("the mapper worker did not stop within 600 s")
+        mapper.finish()
+        if sched is not None:
+            sched.peers.finish()
+
+    def _run_split(self, start_idx: int, n: int, sync: str) -> None:
+        """``parallel.split``: the mapper on ranks [0, k), the tracker on the
+        next m (the JAX package's split meshes, one process per card).
+
+        The track ranks run ``_run_async`` with the map ranks as their
+        mapper (``_RemoteMapper``), the track lead (the first track rank)
+        leading their schedule. The lead sends every frame strict mode maps
+        to the map ranks as a job (``jobs``: the frame index and the poses
+        tracked since the last job; the map ranks read the frame from their
+        own dataset). The map ranks map it on their group, BA and loop
+        closure's relaxation included: the JAX package relaxes on the
+        tracker's mesh, on a snapshot, by the same arithmetic up to the dp
+        sums. Map rank 0 then reports (``done``: the poses the job wrote,
+        BA's keyframes and current frame and loop closure's corrections, the
+        keyframe table as frame indices and poses, and its
+        ``metrics.jsonl`` records), and the lead answers publish or skip by
+        the JAX gate (``answers``). A publish is one broadcast of the scene
+        on the publish group; every track rank receives it on a receiver
+        thread. The final refine and the side outputs run on the track
+        ranks on the final map; the lead writes them. Keyframe depths for
+        the meshes come from the lead's own dataset.
+        """
+        g = self.groups
+        store = self._run_store()
+        peers = Peers(store, self.rank, g.map_ranks + g.track_ranks)
+        if g.role == "track":
+            sched = UnitSchedule(store, peers, lead=self.rank == g.lead, sync=self._sync_stream)
+            self._run_async(start_idx, n, sync, sched, _RemoteMapper(self, start_idx, sched, store))
+            return
+        try:
+            self._split_mapper(store, peers)
+        except BaseException as e:
+            err = peers.failure(e)
+            if err is not e:
+                raise err from e
+            raise
+        peers.finish()
+
+    def _split_mapper(self, store, peers: Peers) -> None:
+        """A map rank under ``parallel.split``: every job in order, until
+        the lead's ``stop`` (``_run_split``)."""
+        g = self.groups
+        jobs, done, answers = (Channel(store, name, peers.check) for name in ("jobs", "done", "answers"))
+        sender = self.rank == g.map_ranks[0]
+        self.schedule_records = []
+        n_jobs = n_answers = 0
+        while True:
+            job = jobs.read(n_jobs)
+            n_jobs += 1
+            publish = job["kind"] == "publish"
+            if job["kind"] == "map":
+                midx = int(job["idx"])
+                for t, row in job["rows"]:
+                    self.estimate_c2w_list[t] = np.asarray(row, dtype=np.float32)
+                _, color, depth, gt_c2w = self.dataset[midx]
+                self.gt_c2w_list[midx] = gt_c2w
+                before = self.estimate_c2w_list[: midx + 1].copy()
+                self._outbox = [] if sender else None
+                try:
+                    self._map_frame(midx, color, depth, self.estimate_c2w_list[midx], gt_c2w, first=job["first"])
+                finally:
+                    records, self._outbox = self._outbox, None
+                self._sync_stream()
+                self.last_idx = midx
+                if sender:
+                    after = self.estimate_c2w_list[: midx + 1]
+                    moved = np.nonzero(np.any(after != before, axis=(1, 2)))[0]
+                    kf_idx, kf_poses, _, selected, _ = self._keyframes_view()
+                    report = {"kind": "map", "idx": midx, "rows": [[int(t), after[t].tolist()] for t in moved],
+                              "kf": [[int(f), p.tolist()] for f, p in zip(kf_idx, kf_poses)], "records": records}
+                    if self.save_selected_keyframes_info and midx in selected:
+                        report["selected"] = [e["est_c2w"].tolist() for e in selected[midx]]
+                    done.append(report)
+                    publish = bool(answers.read(n_answers)["publish"])
+                    n_answers += 1
+            elif sender:
+                done.append({"kind": job["kind"], "idx": job.get("idx")})
+            self.schedule_records.append({"job": job["kind"], "idx": job.get("idx")})
+            if job["kind"] == "stop":
+                return
+            if sender and publish:
+                flat = torch.cat([t.detach().reshape(-1) for t in tree_leaves(self.params)])
+                dist.broadcast(flat, src=g.map_ranks[0], group=g.publish)
+                self._sync_stream()
+
+    def _apply_report(self, msg: Dict[str, Any]) -> None:
+        """A split track rank takes map rank 0's report of a job: the poses
+        it wrote, its keyframe table (the keyframes' images from this
+        rank's dataset) and the selected keyframes."""
+        for t, row in msg.get("rows", []):
+            self.estimate_c2w_list[t] = np.asarray(row, dtype=np.float32)
+        with self._kf_lock:
+            for slot, (frame, pose) in enumerate(msg.get("kf", [])):
+                pose = np.asarray(pose, dtype=np.float32)
+                if slot < len(self.keyframes):
+                    self.keyframes.update_pose(slot, pose)
+                else:
+                    _, color, depth, gt_c2w = self.dataset[frame]
+                    self.keyframes.add(frame, color, depth, pose, gt_c2w)
+            if "selected" in msg:
+                self.selected_keyframes[int(msg["idx"])] = [
+                    {"est_c2w": np.asarray(p, dtype=np.float32)} for p in msg["selected"]]
 
     def _side_outputs(self, idx: int, n: int, params=None) -> None:
         """Checkpoints every ckpt_freq frames and meshes every mesh_freq
         frames, both again at the last frame (ref: src/Mapper.py:574-602;
         the JAX package's slam/system.py:827-893). ``params``: the scene to
         write (default: the mapper's; the async modes pass the published
-        snapshot). The keyframes are read under the keyframe lock. Rank 0
-        alone writes them (nothing here runs a collective)."""
-        if not self.is_rank0:
+        snapshot). The keyframes are read under the keyframe lock. The
+        writer alone writes them (nothing here runs a collective)."""
+        if not self.is_writer:
             return
         last = idx == n - 1
         kf_idx, kf_poses, kf_gt, selected, _ = self._keyframes_view()
@@ -749,3 +850,301 @@ class SLAMSystem:
             self.get_mesh(os.path.join(mesh_dir, "final_mesh.ply"), idx, params=params)
             if self.eval_rec:
                 self.get_mesh(os.path.join(mesh_dir, "final_mesh_eval_rec.ply"), idx, True, params=params)
+
+
+class _MapperLink:
+    """What an async run's tracking thread shares with its mapper
+    (``SLAMSystem._run_async``): the published scene snapshots by map index,
+    the last mapped frame and whether the tracker read the newest snapshot,
+    under one condition variable, and the first error of either side.
+
+    ``submit`` hands the mapper a frame, ``fix_stale`` has the final map
+    published, ``decision`` and ``enter`` add to and take a unit's record
+    of the schedule, ``close`` and ``finish`` end the run.
+    """
+
+    def __init__(self, slam: SLAMSystem, start_idx: int, peers: Optional[Peers]):
+        self.slam, self.peers = slam, peers
+        self.cv = threading.Condition()
+        # the seed snapshot is a copy too: on resume the tracker starts from
+        # it while the first map job already updates the scene in place
+        self.versions = {start_idx - 1: slam._snapshot_for_tracker()}
+        self.published_idx = start_idx - 1
+        # resume: everything before start_idx counts as mapped, so the loose
+        # staleness gate can make progress
+        self.last_mapped = start_idx - 1
+        self.consumed = True  # has the tracker read the newest snapshot?
+        self.error: Optional[BaseException] = None
+
+    def publishes(self, midx: int) -> bool:
+        """Publish on demand (the JAX gate): if the tracker never read the
+        last snapshot, keep it (one map staler) unless it would fall
+        ``2 * every_frame`` frames behind."""
+        with self.cv:
+            return self.consumed or midx - self.published_idx >= 2 * self.slam.every_frame
+
+    def settle(self, midx: int, snap, mapped: bool = True) -> None:
+        """Map ``midx`` is done (``mapped``) and published as ``snap``, or
+        its publish skipped (``snap`` None). The caller holds ``cv`` or not."""
+        with self.cv:
+            if snap is not None:
+                self.versions[midx] = snap
+                self.published_idx = midx
+                self.consumed = False
+            if mapped:
+                self.last_mapped = midx
+            self.cv.notify_all()
+
+    def fail(self, e: BaseException) -> BaseException:
+        """Record ``e`` (this rank's, or the other rank's it echoes); what
+        the run raises for it."""
+        err = self.peers.failure(e) if self.peers is not None else e
+        with self.cv:
+            if self.error is None:
+                self.error = err
+            self.cv.notify_all()
+        return err
+
+    def wait(self, cond) -> None:
+        """Block until ``cond()`` holds (read under ``cv``); raises the first
+        error of either side, or another rank's."""
+        with self.cv:
+            while not cond() and self.error is None:
+                self.cv.wait(timeout=0.05)
+                if self.peers is not None:
+                    self.peers.check()
+            if self.error is not None:
+                raise self.error
+
+    def snapshot(self, read: Optional[int] = None):
+        """Snapshot ``read`` (the index the lead read; default: the newest),
+        marked read, its leaves recorded on this thread's stream; older
+        snapshots are dropped."""
+        with self.cv:
+            if self.error is not None:
+                raise self.error
+            i = self.published_idx if read is None else read
+            if i not in self.versions:
+                raise RuntimeError(f"the schedule's replay diverged: the lead read snapshot {read}, this rank "
+                                   f"holds {sorted(self.versions)}")
+            self.consumed = True
+            snap = self.versions[i]
+            for k in [k for k in self.versions if k < i]:
+                del self.versions[k]
+        if self.slam.device.type == "cuda":
+            here = torch.cuda.current_stream(self.slam.device)
+            for leaf in tree_leaves(snap):
+                leaf.record_stream(here)
+        return snap
+
+    def decision(self, decide) -> Dict[str, Any]:
+        """The lead's record of a unit: ``decide()``, read under ``cv``."""
+        with self.cv:
+            return decide()
+
+    def enter(self, rec: Dict[str, Any]) -> None:
+        """Inside the unit of ``rec``, before its work."""
+
+    def submit(self, idx: int, color, depth, gt_c2w, first: bool) -> None:
+        raise NotImplementedError
+
+    def fix_stale(self, idx: int) -> None:
+        raise NotImplementedError
+
+    def close(self, ok: bool) -> None:
+        """Stop the mapper's side of this process (``ok``: the run ended
+        without an error)."""
+
+    def finish(self) -> None:
+        """After ``close`` of a run that ended well: raise what failed late."""
+        with self.cv:
+            if self.error is not None:
+                raise self.error
+
+
+class _LocalMapper(_MapperLink):
+    """The mapper on a worker thread of this process, taking jobs from a
+    queue, on a CUDA stream of its own on the card. The hand-offs are
+    ordered: the worker synchronizes its stream before it publishes a
+    snapshot and before it releases the keyframe lock after a write, and
+    the tracking thread records its stream on every snapshot leaf it reads
+    (``snapshot``), so the caching allocator does not reuse a snapshot's
+    memory while the tracker's kernels may still read it. With ``sched``
+    (a shared dp group) each job is a unit of the schedule, its publish or
+    skip decided at the grant."""
+
+    def __init__(self, slam: SLAMSystem, start_idx: int, sched: Optional[UnitSchedule]):
+        super().__init__(slam, start_idx, sched.peers if sched is not None else None)
+        self.sched = sched
+        cuda = slam.device.type == "cuda"
+        self.stream = torch.cuda.Stream(slam.device) if cuda else None
+        if cuda:
+            # the worker's first job reads what this thread wrote (the
+            # initial or resumed scene, the priors, the keyframe store)
+            self.stream.wait_stream(torch.cuda.current_stream(slam.device))
+        self.jobs: "queue.Queue" = queue.Queue()
+        self.worker = threading.Thread(target=self._work, name="mapper", daemon=True)
+        self.worker.start()
+
+    def settle(self, midx: int, snap, mapped: bool = True) -> None:
+        with self.cv:
+            super().settle(midx, snap, mapped)
+            if snap is not None:  # the tracker reads the newest alone
+                for k in [k for k in self.versions if k < midx]:
+                    del self.versions[k]
+
+    def _publish(self, midx: int, publish: bool) -> None:
+        slam = self.slam
+        if not publish:
+            self.settle(midx, None)
+            slam._log_metrics({"event": "publish_skip", "idx": int(midx)})
+            return
+        t0 = time.time()
+        snap = slam._snapshot_for_tracker()
+        publish_s = time.time() - t0
+        self.settle(midx, snap)
+        slam._log_metrics({"event": "publish", "idx": int(midx), "publish_s": round(publish_s, 4)})
+
+    def _work(self) -> None:
+        slam, sched = self.slam, self.sched
+        try:
+            with torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext():
+                while True:
+                    job = self.jobs.get()
+                    if job is None:
+                        return
+                    midx, color, depth, gt_c2w, first = job
+                    if sched is None:
+                        slam._map_frame(midx, color, depth, slam.estimate_c2w_list[midx], gt_c2w, first=first)
+                        slam._sync_stream()  # the map job's work is done before anyone reads it
+                        self._publish(midx, self.publishes(midx))
+                        continue
+                    # one unit: the map and its publish or skip, decided at the grant
+                    with sched.unit("map", midx, lambda: {"publish": self.publishes(midx)}) as rec:
+                        slam._map_frame(midx, color, depth, slam.estimate_c2w_list[midx], gt_c2w, first=first)
+                        self._publish(midx, rec["publish"])
+        except BaseException as e:  # surfaced in the tracking thread
+            self.fail(e)
+
+    def submit(self, idx: int, color, depth, gt_c2w, first: bool) -> None:
+        self.jobs.put((idx, color, depth, gt_c2w, first))
+
+    def fix_stale(self, idx: int) -> None:
+        self.settle(idx, self.slam._snapshot_for_tracker(), mapped=False)
+
+    def close(self, ok: bool) -> None:
+        self.jobs.put(None)
+        self.worker.join(timeout=600)
+
+    def finish(self) -> None:
+        if self.worker.is_alive():
+            raise RuntimeError("the mapper worker did not stop within 600 s")
+        super().finish()
+
+
+class _RemoteMapper(_MapperLink):
+    """A split track rank's mapper: the map ranks (``SLAMSystem._run_split``).
+    The track lead sends the jobs; a receiver thread takes map rank 0's
+    reports in order and, for each publish, the scene's broadcast on the
+    publish group (the lead answers each map's publish or skip by the JAX
+    gate, the other track ranks read its answers). A unit's record also
+    names the count of reports the lead had applied (``decision``), and a
+    follower waits for those and for the snapshot the lead read before it
+    applies them (``enter``). Snapshots stay until the tracker reads a
+    newer one: a follower's receiver may run ahead of its tracker."""
+
+    def __init__(self, slam: SLAMSystem, start_idx: int, sched: UnitSchedule, store):
+        super().__init__(slam, start_idx, sched.peers)
+        self.lead = sched.lead
+        self.jobs, self.done, self.answers = (Channel(store, name, self.peers.check)
+                                              for name in ("jobs", "done", "answers"))
+        self.received: list = []  # map rank 0's reports, in order
+        self.applied = 0
+        self.sent = start_idx - 1  # the last frame whose tracked pose the map ranks have
+        cuda = slam.device.type == "cuda"
+        self.stream = torch.cuda.Stream(slam.device) if cuda else None
+        if cuda:
+            self.stream.wait_stream(torch.cuda.current_stream(slam.device))
+        self.template = tree_leaves(slam.params)  # a broadcast scene's leaves take their shapes
+        self.receiver = threading.Thread(target=self._receive, name="receiver", daemon=True)
+        self.receiver.start()
+
+    def _receive(self) -> None:
+        """Map rank 0's reports in order, with each broadcast of the scene."""
+        slam, g = self.slam, self.slam.groups
+        sizes = [t.numel() for t in self.template]
+        try:
+            with torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext():
+                n_done = n_answers = 0
+                while True:
+                    msg = self.done.read(n_done)
+                    n_done += 1
+                    if msg["kind"] == "stop":
+                        return
+                    midx = int(msg["idx"])
+                    publish = True  # the final fix-up
+                    if msg["kind"] == "map":
+                        for rec in msg["records"]:
+                            slam._log_metrics(rec)
+                        if self.lead:
+                            publish = self.publishes(midx)
+                            self.answers.append({"publish": publish})
+                        else:
+                            publish = bool(self.answers.read(n_answers)["publish"])
+                        n_answers += 1
+                    snap, t0 = None, time.time()
+                    if publish:
+                        flat = torch.empty(sum(sizes), device=slam.device)
+                        dist.broadcast(flat, src=g.map_ranks[0], group=g.publish)
+                        slam._sync_stream()
+                        snap = tree_unflatten(slam.params, [p.view_as(t) for p, t in
+                                                            zip(torch.split(flat, sizes), self.template)])
+                    publish_s = time.time() - t0
+                    with self.cv:
+                        self.received.append(msg)
+                        self.settle(midx, snap, mapped=msg["kind"] == "map")
+                    if msg["kind"] == "map":
+                        slam._log_metrics({"event": "publish", "idx": midx, "publish_s": round(publish_s, 4)}
+                                          if publish else {"event": "publish_skip", "idx": midx})
+        except BaseException as e:  # surfaced in the tracking thread
+            self.fail(e)
+
+    def decision(self, decide) -> Dict[str, Any]:
+        with self.cv:
+            return {**decide(), "applied": len(self.received)}
+
+    def enter(self, rec: Dict[str, Any]) -> None:
+        """Wait (a follower) until the receiver has the reports the lead had
+        applied and the snapshot it read; apply them."""
+        read = rec.get("read")
+        self.wait(lambda: len(self.received) >= rec["applied"] and (read is None or read in self.versions))
+        with self.cv:
+            reports = self.received[self.applied: rec["applied"]]
+        self.applied = rec["applied"]
+        for msg in reports:
+            self.slam._apply_report(msg)
+
+    def submit(self, idx: int, color, depth, gt_c2w, first: bool) -> None:
+        if not self.lead:
+            return
+        est = self.slam.estimate_c2w_list
+        rows = [[t, est[t].tolist()] for t in range(self.sent + 1, idx + 1)]
+        self.sent = idx
+        self.jobs.append({"kind": "map", "idx": idx, "first": first, "rows": rows})
+
+    def fix_stale(self, idx: int) -> None:
+        if self.lead:
+            self.jobs.append({"kind": "publish", "idx": idx})
+        self.wait(lambda: self.published_idx >= idx)
+
+    def close(self, ok: bool) -> None:
+        if ok and self.lead:
+            self.jobs.append({"kind": "stop"})
+        self.receiver.join(timeout=600 if ok else 5)
+
+    def finish(self) -> None:
+        if self.receiver.is_alive():
+            raise RuntimeError("the receiver did not stop within 600 s")
+        super().finish()
+        # the last published scene is this rank's map from here on
+        self.slam.params = self.snapshot()

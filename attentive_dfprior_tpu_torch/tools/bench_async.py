@@ -1,23 +1,34 @@
-"""Strict against loose on one device: the port of ``scripts/bench_async.py``.
+"""Strict against loose, on one device and across ranks: the port of
+``scripts/bench_async.py``.
 
     python -m attentive_dfprior_tpu_torch.tools.bench_async [--frames 20]
-        [--device cuda|cpu] [--out PATH] [--out-root DIR]
+        [--device cuda|cpu] [--split m,t] [--out PATH] [--out-root DIR]
 
 Runs the same short ``configs/Synthetic/room_tracking.yaml`` workload
 (``data.n_frames`` set to ``--frames``, seed 0, checkpoints and meshes off)
-three times in one process, as the JAX harness's ``strict_warm``, ``loose``
-and ``strict`` reps: the first strict rep pays the one-off costs (kernel
-builds, the frames rendered on the host), so compare the second strict rep
-with the loose one. For each rep it reads the per-event wall-clock stamps in
-``metrics.jsonl``: wall seconds of ``run()``, frames tracked and mapped, the
-median and 90th percentile of the interval between tracked frames, and the
-loose rep's publishes, skipped publishes and seconds spent publishing.
+as the JAX harness's reps: ``strict_warm``,
+``loose`` and ``strict`` in this process (the first strict rep pays the
+one-off costs, kernel builds and the frames rendered on the host, so
+compare the second strict rep with the loose one); with ``--split m,t``
+also ``strict_dp_warm``, ``loose_dp_warm``, ``loose_split_warm``,
+``strict_dp``, ``loose_dp`` and ``loose_split``, each as ``m + t``
+processes through ``tools/multihost_smoke.py``'s ``start`` / ``finish``
+(``parallel.enable`` on ``m + t`` ranks, then ``parallel.split: {map: m,
+track: t}``; every topology's warm rep first), in a working directory
+holding the workload's prior, built once (``prior_workdir``). For each rep
+it reads the
+per-event wall-clock stamps in ``metrics.jsonl`` (the writer's): wall
+seconds of ``run()``, frames tracked and mapped, the median and 90th
+percentile of the interval between tracked frames, and the publishes,
+skipped publishes and seconds spent publishing.
 
 On the card the loose rep's mapper runs on its own thread and CUDA stream
 (``slam/system.py:_run_async``), so its kernels may overlap the tracker's;
-whether that shortens the run is what the record says. Runs on the card
-unless ``--device cpu`` is given. The JAX harness's split-device and
-data-parallel reps need the sharding slice and are not here.
+whether that shortens the run is what the record says. The ranks of the dp
+and split reps join over gloo: on one card they all run on ``cuda:0``
+(NCCL refuses two ranks on one device) and time-slice it, so those reps
+show the schedule's cost, not a speed-up; the record says so
+(``split_note``). Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +48,10 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CONFIG = os.path.join(REPO, "configs", "Synthetic", "room_tracking.yaml")
 REPS = (("strict_warm", "strict"), ("loose", "loose"), ("strict", "strict"))
+# the reps across ranks, each topology's warm rep first (scripts/bench_async.py:156-165)
+RANK_REPS = (("strict_dp_warm", "strict", "dp"), ("loose_dp_warm", "loose", "dp"),
+             ("loose_split_warm", "loose", "split"), ("strict_dp", "strict", "dp"),
+             ("loose_dp", "loose", "dp"), ("loose_split", "loose", "split"))
 
 
 def card_name_and_power() -> str:
@@ -52,15 +67,23 @@ def card_name_and_power() -> str:
     return lines[0] if out.returncode == 0 and lines else "not read"
 
 
-def run_mode(sync: str, frames: int, out: str, device: str) -> Dict[str, Any]:
-    """One rep: a fresh SLAMSystem on the workload under ``sync``; its record."""
+def run_mode(sync: str, frames: int, out: str, device: str, parallel: Optional[Dict[str, Any]] = None,
+             overrides: Sequence[str] = ()) -> Dict[str, Any]:
+    """One rep: a fresh SLAMSystem on the workload under ``sync`` (with the
+    ``parallel`` config section, on the process group this process joined);
+    its record, read from the writer's ``metrics.jsonl`` (``{"writer":
+    False}`` on another rank)."""
     from attentive_dfprior_tpu_torch import config
+    from attentive_dfprior_tpu_torch.run import apply_overrides
     from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
 
     cfg = config.load_config(CONFIG, config.default_config_path())
+    apply_overrides(cfg, list(overrides))
     cfg["seed"] = 0
     cfg["sync_method"] = sync
     cfg["data"]["n_frames"] = frames
+    if parallel is not None:
+        cfg["parallel"] = parallel
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
     np.random.seed(0)
@@ -72,13 +95,17 @@ def run_mode(sync: str, frames: int, out: str, device: str) -> Dict[str, Any]:
     if slam.device.type == "cuda":
         torch.cuda.synchronize(slam.device)
     wall = time.perf_counter() - t0
+    if not slam.is_writer:
+        return {"writer": False}
 
     events = [json.loads(ln) for ln in open(os.path.join(out, "metrics.jsonl"))]
     tracks = [e for e in events if e["event"] == "track"]
     pubs = [e for e in events if e["event"] == "publish"]
     iv = np.diff([e["t"] for e in tracks]) if len(tracks) > 1 else np.zeros(0)
     return {
+        "writer": True,
         "sync_method": sync,
+        "parallel": parallel,
         "frames": frames,
         "wall_s": wall,
         "n_tracked": len(tracks),
@@ -92,10 +119,49 @@ def run_mode(sync: str, frames: int, out: str, device: str) -> Dict[str, Any]:
     }
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+def prior_workdir(root: str, device: str, overrides: Sequence[str]) -> str:
+    """A working directory for the processes of the reps across ranks:
+    links to the repo's ``configs/`` and ``pretrained/``, and the
+    workload's prior built here once (the builder's cache, which
+    ``load_tsdf_volume`` reads) instead of in every process."""
+    from attentive_dfprior_tpu_torch import config
+    from attentive_dfprior_tpu_torch.run import apply_overrides
+    from attentive_dfprior_tpu_torch.tsdf.builder import save_tsdf_volume
+
+    work = os.path.join(root, "ranks_workdir")
+    os.makedirs(work, exist_ok=True)
+    for name in ("configs", "pretrained"):
+        if not os.path.exists(os.path.join(work, name)):
+            os.symlink(os.path.join(REPO, name), os.path.join(work, name))
+    cfg = config.load_config(CONFIG, config.default_config_path())
+    apply_overrides(cfg, list(overrides))
+    save_tsdf_volume(cfg, space=int(cfg.get("tsdf", {}).get("space", 10)), device=device,
+                     out_dir=os.path.join(work, f"{cfg['data']['dataset']}_tsdf_volume"))
+    return work
+
+
+def run_ranks(sync: str, frames: int, out: str, device: str, parallel: Dict[str, Any], world: int,
+              overrides: Sequence[str], cwd: str) -> Dict[str, Any]:
+    """One rep as ``world`` processes joined over gloo (on ``cuda:0`` when
+    ``device`` is the card) in the working directory ``cwd``, one torch CPU
+    thread each (the ranks share the host's cores); the writer's record."""
+    from attentive_dfprior_tpu_torch.tools import multihost_smoke as mh
+
+    dev = "cuda:0" if device == "cuda" else device
+    spec = {"sync": sync, "frames": frames, "output": out, "device": dev, "backend": "gloo",
+            "parallel": parallel, "overrides": list(overrides), "threads": 1}
+    results = mh.finish(mh.start("bench", spec, world, cwd=cwd), timeout=3600)
+    return next(r for r in results if r["writer"])
+
+
+def main(argv: Optional[List[str]] = None, overrides: Sequence[str] = ()) -> Dict[str, Any]:
+    """The harness on ``argv``; ``overrides`` (``--set`` syntax of
+    ``run.py``) apply to every rep's config, in this process and in the
+    ranks' processes."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--split", default=None, help="'m,t': add the dp reps on m + t ranks and the split reps")
     ap.add_argument("--out", default=None, help="also write the JSON record here")
     ap.add_argument("--out-root", default=None, help="the runs' output directories (default: a temporary one)")
     args = ap.parse_args(argv)
@@ -103,8 +169,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     root = args.out_root or tempfile.mkdtemp(prefix="bench_async_")
     runs: Dict[str, Any] = {}
     for tag, sync in REPS:
-        runs[tag] = run_mode(sync, args.frames, os.path.join(root, tag), args.device)
+        runs[tag] = run_mode(sync, args.frames, os.path.join(root, tag), args.device, overrides=overrides)
         print(json.dumps({tag: runs[tag]}), flush=True)
+    if args.split:
+        m, t = (int(x) for x in args.split.split(","))
+        topologies = {"dp": {"enable": True, "n_devices": m + t},
+                      "split": {"enable": True, "split": {"map": m, "track": t}}}
+        work = prior_workdir(root, args.device, overrides)
+        for tag, sync, topo in RANK_REPS:
+            runs[tag] = run_ranks(sync, args.frames, os.path.join(root, tag), args.device, topologies[topo], m + t,
+                                  overrides, work)
+            print(json.dumps({tag: runs[tag]}), flush=True)
     strict, loose = runs["strict"], runs["loose"]
     summary = {
         "device": args.device,
@@ -113,6 +188,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "cuda": torch.version.cuda,
         "wall_strict_over_loose": strict["wall_s"] / loose["wall_s"],
     }
+    if args.split:
+        summary["speedup_split_vs_strict_dp"] = runs["strict_dp"]["wall_s"] / runs["loose_split"]["wall_s"]
+        summary["speedup_split_vs_loose_dp"] = runs["loose_dp"]["wall_s"] / runs["loose_split"]["wall_s"]
+        summary["split_note"] = (
+            f"every rank of the dp and split reps ({m + t} processes, gloo) runs on "
+            + ("cuda:0 of one card and time-slices it, so no rep runs faster than the in-process ones; the ratios "
+               "read what dp pays (every rank launches the whole step, plus a gloo sum of the bucket a step) "
+               "against split (each rank one agent's work, plus a broadcast a publish), not a speed-up across cards"
+               if args.device == "cuda" else
+               "the CPU: the ranks share the host's cores, so the ratios read the schedule's cost, not a speed-up")
+        )
     payload = {"runs": runs, "summary": summary, "when": time.strftime("%Y-%m-%d %H:%M:%S")}
     if args.out:
         with open(args.out, "w") as f:

@@ -39,8 +39,12 @@ first iterations, which stay held at MAP_LOSS_RTOL.
 Every worker runs on the CPU over gloo. Writes the record to ``--out`` when
 given; prints a summary as the last line; exits 0 when every phase passed.
 The SLAM worker (``slam_worker``, started with ``start`` / ``finish``) is
-also the one ``chip_smoke.py`` phase 15 runs on the card, as two gloo ranks
-on ``cuda:0`` (NCCL refuses two ranks on one device).
+also the one ``chip_smoke.py`` phases 15 and 16 run on the card, as two
+gloo ranks on ``cuda:0`` (NCCL refuses two ranks on one device): its spec
+takes ``sync`` and ``split`` for the async agents across processes, and its
+result carries the rank's role and the schedule's decision log
+(``compare_async`` holds the ranks of one such run to each other).
+``bench_worker`` is one rep of ``tools/bench_async.py`` on the group.
 """
 
 from __future__ import annotations
@@ -84,10 +88,11 @@ def _child_env(rank: int, world: int, port: int, extra: Optional[Dict[str, str]]
     return env
 
 
-def start(worker: str, spec: Dict[str, Any], world: int, extra_env: Optional[Dict[str, str]] = None):
+def start(worker: str, spec: Dict[str, Any], world: int, extra_env: Optional[Dict[str, str]] = None,
+          cwd: str = REPO):
     """Start ``worker`` in ``world`` child processes joined over a local
-    port, or in one process with no group when ``world`` is 0; returns the
-    children for ``finish``."""
+    port, or in one process with no group when ``world`` is 0, in the
+    working directory ``cwd``; returns the children for ``finish``."""
     port = free_port()
     procs = []
     for rank in range(max(world, 1)):
@@ -95,10 +100,11 @@ def start(worker: str, spec: Dict[str, Any], world: int, extra_env: Optional[Dic
         if not world:
             for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
                 env.pop(k, None)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)  # from any cwd
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "attentive_dfprior_tpu_torch.tools.multihost_smoke", "--worker", worker,
              "--spec", json.dumps(spec)],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     return worker, procs
 
@@ -183,12 +189,16 @@ def slam_worker(spec) -> Dict[str, Any]:
     """``SLAMSystem.run`` on ``spec["config"]`` with ``spec["overrides"]``
     (``--set`` syntax) to ``spec["end_idx"]``, on the group when there is
     one; under deterministic algorithms with ``spec["deterministic"]``.
-    With ``spec["perturb_ulp"]`` every element of the feature grids is
-    moved one ulp up (``torch.nextafter``) before the run (the witness of
-    ``compare_slam``). Writes the final scene leaves and the trajectory to
-    ``<spec["record"]>.rank<r>.npz``; returns frame 0's per-iteration map
-    losses, the tracking and mapping losses of ``metrics.jsonl`` (rank 0),
-    every kernel's launches, and seconds by part."""
+    ``spec["sync"]`` sets ``sync_method``, and ``spec["split"]`` ({map: k,
+    track: m}) ``parallel.split``. With ``spec["perturb_ulp"]`` every element
+    of the feature grids is moved one ulp up (``torch.nextafter``) before the
+    run (the witness of ``compare_slam``). With ``spec["crash_rank"]`` that
+    rank's mapper raises at its first map job. Writes the final scene leaves
+    and the trajectory to ``<spec["record"]>.rank<r>.npz``; returns the
+    rank's role, the schedule's decision log as the rank appended or
+    replayed it, frame 0's per-iteration map losses, the tracking and
+    mapping losses and the map / publish events of ``metrics.jsonl`` (the
+    writer's), every kernel's launches, and seconds by part."""
     from attentive_dfprior_tpu_torch.config import default_config_path, load_config
     from attentive_dfprior_tpu_torch.ops.cuda.build import port_kernels
     from attentive_dfprior_tpu_torch.run import apply_overrides
@@ -205,6 +215,10 @@ def slam_worker(spec) -> Dict[str, Any]:
     cfg = load_config(spec["config"], default_config_path())
     apply_overrides(cfg, spec["overrides"])
     cfg["seed"] = 0
+    if spec.get("sync"):
+        cfg["sync_method"] = spec["sync"]
+    if spec.get("split"):
+        cfg["parallel"] = dict(cfg.get("parallel") or {}, enable=True, split=dict(spec["split"]))
     kernels = port_kernels()
     for k in kernels:
         k.launches = 0
@@ -222,6 +236,11 @@ def slam_worker(spec) -> Dict[str, Any]:
         return out
 
     slam.mapper.optimize_map = recorded
+    if spec.get("crash_rank") == rank:
+        def crash(*a, **kw):
+            raise RuntimeError(f"mapper failed on rank {rank}")
+
+        slam._map_frame = crash
     # the tracker's per-iteration losses, and the trajectory the final refine starts from
     track_losses: List[List[float]] = []
     track_frame = tracker_mod.track_frame
@@ -254,12 +273,15 @@ def slam_worker(spec) -> Dict[str, Any]:
              gt=slam.gt_c2w_list[:n],
              **{f"p{i:04d}": v for i, v in enumerate(leaves)})
     events = []
-    if slam.is_rank0:
+    if slam.is_writer:
         with open(os.path.join(spec["output"], "metrics.jsonl")) as f:
             events = [json.loads(ln) for ln in f]
     return {
         "rank": rank, "world": dist.get_world_size() if dist.is_initialized() else 1,
-        "device": str(slam.device), "dp": slam.shards is not None,
+        "device": str(slam.device), "dp": slam.shards is not None, "role": slam.role,
+        "writer": slam.is_writer, "schedule": slam.schedule_records,
+        "schedule_events": [[e["event"], e["idx"]] for e in events
+                            if e["event"] in ("map", "publish", "publish_skip", "track")],
         "map_losses_frame0": frame_losses[0] if frame_losses else [],
         "all_map_losses_finite": bool(all(np.isfinite(v).all() for v in frame_losses)),
         "track_losses": [e["loss"] for e in events if e["event"] == "track"],
@@ -270,11 +292,24 @@ def slam_worker(spec) -> Dict[str, Any]:
     }
 
 
-WORKERS = {"gather": gather_worker, "mapping": mapping_worker, "slam": slam_worker}
+def bench_worker(spec) -> Dict[str, Any]:
+    """One rep of ``tools/bench_async.py`` (``run_mode``) on the group."""
+    from attentive_dfprior_tpu_torch.tools.bench_async import run_mode
+
+    _join(spec)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return run_mode(spec["sync"], spec["frames"], os.path.join(spec["output"], f"rank{rank}"), spec["device"],
+                    parallel=spec.get("parallel"), overrides=spec.get("overrides", ()))
+
+
+WORKERS = {"gather": gather_worker, "mapping": mapping_worker, "slam": slam_worker, "bench": bench_worker}
 
 
 def _worker_main(name: str, spec: Dict[str, Any]) -> None:
-    if torch.device(spec["device"]).type == "cpu":
+    # torch's CPU threads: spec["threads"], else on the CPU the host's cores shared by the ranks
+    if spec.get("threads"):
+        torch.set_num_threads(int(spec["threads"]))
+    elif torch.device(spec["device"]).type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // max(1, int(os.environ.get("WORLD_SIZE", "1")))))
     try:
         out = WORKERS[name](spec)
@@ -347,6 +382,47 @@ def compare_slam(dp: List[Dict[str, Any]], single: Dict[str, Any], record: str,
             "finite": bool(finite), "n_frame0_iters": len(dp[0]["map_losses_frame0"]), "gates": gates,
             "dp_vs_single": gaps, "witness_vs_single": wgaps,
             "ate_vs_gt_mm": {k: round(v, 3) for k, v in ate_mm.items()}}
+
+
+def compare_async(runs: List[Dict[str, Any]], record: str, reference: Optional[str] = None) -> Dict[str, Any]:
+    """The ranks of one loose / free run (``slam_worker``'s results and
+    ``.npz`` records under ``record``) against each other: every rank's
+    final scene leaves equal bit for bit, the trajectories of the ranks
+    that track equal, and each rank's decision log equal to that of the
+    first rank of its role (a follower's is a replay of the lead's). With
+    ``reference`` (another run's record) every rank's leaves against its
+    rank 0's: ``equal_to_reference`` and the largest difference."""
+    arrays = {r["rank"]: np.load(f"{record}.rank{r['rank']}.npz") for r in runs}
+    first = arrays[runs[0]["rank"]]
+    leaves = sorted(k for k in first.files if k.startswith("p"))
+
+    def max_diff(a, b) -> float:
+        if sorted(a.files) != sorted(b.files):
+            return float("inf")
+        return max(float(np.max(np.abs(a[k] - b[k]), initial=0.0)) for k in leaves)
+
+    trackers = [r for r in runs if r["role"] != "map"]
+    writer = next(r for r in runs if r["writer"])
+    by_role: Dict[str, List[Dict[str, Any]]] = {}
+    for r in runs:
+        by_role.setdefault(r["role"], []).append(r)
+    out = {
+        "roles": {str(r["rank"]): r["role"] for r in runs},
+        "replicas_equal": all(max_diff(a, first) == 0.0 for a in arrays.values()),
+        "trajectories_equal": all(np.array_equal(arrays[r["rank"]]["traj"], arrays[writer["rank"]]["traj"])
+                                  for r in trackers),
+        "logs_replayed": all(r["schedule"] == rs[0]["schedule"] for rs in by_role.values() for r in rs),
+        "n_log_records": len(writer["schedule"]),
+        "n_leaves": len(leaves),
+    }
+    if reference is not None:
+        ref = np.load(f"{reference}.rank0.npz")
+        diffs = [max_diff(a, ref) for a in arrays.values()]
+        out["equal_to_reference"] = all(d == 0.0 for d in diffs)
+        out["max_abs_diff_to_reference"] = max(diffs)
+        dt = np.linalg.norm(arrays[writer["rank"]]["traj"][:, :3, 3] - ref["traj"][:, :3, 3], axis=-1)
+        out["traj_max_diff_to_reference_mm"] = float(dt.max()) * 1e3
+    return out
 
 
 def run_phases(phases: str, frames: int, workdir: str) -> Dict[str, Any]:

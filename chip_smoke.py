@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-5, 7, 10, 12, 13 and 15, one card
+    python3 chip_smoke.py                # phases 1-5, 7, 10, 12, 13, 15 and 16, one card
     python3 chip_smoke.py --phases 1,2   # build + kernel checks only
     python3 chip_smoke.py --phases 1,8   # the room.yaml quality run
     python3 chip_smoke.py --phases 1,9   # the room_tracking.yaml quality run
@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,12,13  # the file-backed loaders and the tools
     python3 chip_smoke.py --phases 1,14  # the full decoder pretrain and its prior's gates
     python3 chip_smoke.py --phases 1,15  # ray-axis data parallelism alone
+    python3 chip_smoke.py --phases 1,16  # the async agents across processes alone
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
@@ -58,7 +59,7 @@ Phases (each failure exits non-zero):
      gate: aligned ATE <= 4.5 cm;
  10. the async modes: (a) frames 0..10 of room_tracking.yaml with GT poses
      (``tracking.gt_camera=True``, so the tracker draws nothing and loop
-     closure is off), ``mapping.iters_first=200``, the prior fused from every
+     closure is off), ``mapping.iters_first=100``, the prior fused from every
      10th frame, under ``strict``, ``loose`` and ``free`` in a child process
      under ``torch.use_deterministic_algorithms``: the three final
      checkpoints' scene leaves must be ``torch.equal`` (a missing stream
@@ -75,14 +76,14 @@ Phases (each failure exits non-zero):
  12. configs/Replica/room0.yaml through the file-backed entry point at its
      full width: in a fresh working directory (links to the repo's
      ``configs/`` and ``pretrained/``, no prior cache), a Replica-layout
-     fixture of frames 0..15 of room_tracking.yaml's trajectory rendered at
+     fixture of frames 0..10 of room_tracking.yaml's trajectory rendered at
      room0's 680x1200 camera (``results/frame*.jpg`` written with OpenCV,
      ``results/depth*.png`` uint16 depth x 6553.5, ``traj.txt`` OpenCV
      c2w), read back through ``Replica`` (depth and poses exact, colour mean
      abs error at most 2/255); the TSDF builder's CLI with
      ``--input_folder`` (room0's prior, voxel 4/256 m, every frame); then
      ``attentive_dfprior_tpu_torch.run`` with ``--input_folder``, panels
-     every 5th frame: tracks 1-15, maps 0, 5, 10 and 15. Fails on a
+     every 5th frame: tracks 1-10, maps 0, 5 and 10. Fails on a
      non-finite loss, another mapping schedule, a prior not loaded from the
      builder's cache, no K1 or K2 launch, or unaligned ATE above 10 cm;
      prints aligned ATE, seconds by part, peak device memory and the mesh's
@@ -90,7 +91,7 @@ Phases (each failure exits non-zero):
  13. the loaders and tools: (a) a ScanNet-layout fixture of 3 frames at
      configs/ScanNet/scene0000.yaml's 480x640 camera read back through
      ``ScanNet`` (460x620 after ``crop_edge`` 10, depth and poses exact);
-     (b) ``tools/pretrain_decoders.py`` at its shipped widths for 500 steps
+     (b) ``tools/pretrain_decoders.py`` at its shipped widths for 250 steps
      (finite losses, the last below the first, two K1 launches a step, the
      ``.npz`` through ``load_pretrained_npz``); (c) ``tools/evaluate_scannet.py``
      ``refuse`` on the card: the synthetic GT mesh re-fused along phase 12's
@@ -119,11 +120,27 @@ Phases (each failure exits non-zero):
      max(1e-3 / 5 mm, 10 x the witness's gap) of it; seconds by part
      printed (no speed claim: the ranks share one card, gloo stages
      through host memory). One card shows neither NCCL across devices nor
-     scaling.
+     scaling;
+ 16. the async agents across processes, as two gloo ranks on ``cuda:0``
+     each, all children at once: (a) phase 10(a)'s runs with
+     ``parallel.enable=True`` as strict, loose and free on 2 ranks: every
+     rank's final scene ``torch.equal`` to strict's on 2 ranks, rank 1's
+     decision log a replay of rank 0's (``slam/schedule.py``), and in the
+     logs of loose and free a frame after 5 granted before map 5 (rank 0's
+     mapper asks for that grant late, so rank 1, whose own mapper asks
+     first, replays an order its timing would not give); (b)
+     ``parallel.split: {map: 1, track: 1}`` under loose on frames 0..15 as
+     phase 4 runs them (loop closure and the final refine as shipped, no
+     panels; the prior built once in the parent), under deterministic
+     algorithms: publishes, K1 on the map
+     rank, finite losses, the track rank's final scene (the last broadcast)
+     equal to the map rank's, the trajectory within 20 cm of phase 4's
+     strict run; unaligned and aligned ATE printed.
 
 Every path (each timed variant of phase 3, phases 4, 5, 5(b), 7, 8, 9, 10,
-11, 12, 13(b) and 14, each of phase 10(a)'s three runs and each of phase
-15(b)'s four processes, counted in its child process) runs with
+11, 12, 13(b) and 14, each of phase 10(a)'s three runs, each of phase
+15(b)'s four processes and each of phase 16's, counted in its child
+process) runs with
 the launch counts set to 0 just before it and read just after; the
 ``kernels`` JSON line reports each kernel's launches over those paths with
 its error, time, plain time and bound. The last line is the contract's
@@ -155,15 +172,18 @@ RENDER_GAP_M = 1e-6  # K2 vs plain MLP render, mean depth gap: ~25x what an H100
 ENTRY_END = 16  # phase 4 runs frames 0..15: at 15, keyframe 0 is loop_closure.min_gap frames old
 PANELS_EVERY_5 = ["--set", "mapping.vis_freq=5", "--set", "tracking.vis_freq=5"]
 ATE_GATE_CM = 4.5  # phase 9, aligned: between the JAX package's 2.871 cm with loop closure and 5.82 without (TPU)
-ASYNC_EQUAL_END = 11  # phase 10(a) runs frames 0..10: maps 0, 5 and 10
-ASYNC_EQUAL_SET = ["tracking.gt_camera=True", "mapping.iters_first=200", "tsdf.space=10"]
+# phases 10(a) and 16(a) run frames 0..10: maps 0, 5 and 10, and map 5 runs while frames 6.. are tracked;
+# the first map cut from 200 iterations to 100 (1000 as shipped) to pay for map 10
+ASYNC_EQUAL_END = 11
+ASYNC_EQUAL_SET = ["tracking.gt_camera=True", "mapping.iters_first=100", "tsdf.space=10"]
+OVERLAP_MAP = 5  # 16(a): a frame after it is granted before its map (``late_map_grant``)
 LOOSE_REFINE_ITERS = 20  # phase 10(b)'s final refine, cut from 100 to keep the default run near 800 s
 CHILD_TAG = "ASYNC_EQUAL "  # the prefix of phase 10(a)'s result line in the child's output
 REPLICA_ROOM0 = os.path.join("configs", "Replica", "room0.yaml")  # from a working directory linking configs/
 SCANNET_SCENE = os.path.join("configs", "ScanNet", "scene0000.yaml")
-REPLICA_END = 16  # phase 12: frames 0..15, mapped at 0, 5, 10 and 15 (every_frame 5, last frame)
+REPLICA_END = 11  # phase 12: frames 0..10, mapped at 0, 5 and 10 (every_frame 5, last frame); cut from 16 for time
 COLOR_MEAN_GATE = 2.0 / 255  # phase 12-13: JPEG at OpenCV's default quality 95
-PRETRAIN_STEPS = 500  # phase 13(b): 500 of the tool's 6000
+PRETRAIN_STEPS = 250  # phase 13(b): 250 of the tool's 6000 (cut from 500 for time)
 REFUSE_RECALL_GATE, REFUSE_COMP_GATE = 0.95, 0.01  # phase 13(c): the GT re-fused covers what the poses see
 IMPORTANCE_N = 16  # phase 5(b): rendering.N_importance
 DP_END = 6  # phase 15(b): frames 0..5 (maps 0 and 5, the colour refine at 5, the last frame)
@@ -173,6 +193,9 @@ DP_REFINE_ITERS = 20  # phase 15(b)'s final refine, cut from 100 as phase 10(b)'
 DP_ITERS_FIRST, DP_ITERS = 100, 20
 DP_SET = ["data.n_frames=6", f"loop_closure.refine_iters={DP_REFINE_ITERS}", f"mapping.iters_first={DP_ITERS_FIRST}",
           f"mapping.iters={DP_ITERS}", "parallel.enable=True"]
+ASYNC_DP_SET = ASYNC_EQUAL_SET + ["parallel.enable=True"]  # phase 16(a): phase 10(a)'s runs on 2 ranks (the printout)
+# phase 16(b) against phase 4's strict run: the JAX split test's 20 cm (tests/test_sharding.py:306)
+SPLIT_TRAJ_GATE_M = 0.20
 
 
 def fail(msg: str) -> None:
@@ -643,54 +666,105 @@ def phase_entry(torch, dev):
     if tracked != [ENTRY_END, ENTRY_END + 1] or not os.path.exists(ckpt) or resumed.last_idx != ENTRY_END + 1:
         fail(f"resume: expected frames {ENTRY_END}-{ENTRY_END + 1} and {os.path.basename(ckpt)}")
     return slam, {"wall_s": wall, "run_s": slam.profiler.seconds["run"], "loop_s": slam.timings["loop"],
-                  "track_interval_median_s": track_interval_median(records)}
+                  "track_interval_median_s": track_interval_median(records),
+                  "traj": slam.estimate_c2w_list[:ENTRY_END].copy()}
+
+
+def late_map_grant() -> None:
+    """Phase 16(a): the lead's mapper asks for map OVERLAP_MAP's grant only
+    once a later frame's track unit is granted (``slam/schedule.py``). On
+    the card the mapper asked first in every run, so the log came out the
+    same whatever the timing; now the lead's log grants frame
+    OVERLAP_MAP + 1 before that map, which the JAX ``dispatch_lock``
+    allows too, while a follower's own mapper still asks first and must
+    wait for the log's order to replay it."""
+    from attentive_dfprior_tpu_torch.parallel.sharding import GROUP_TIMEOUT_S
+    from attentive_dfprior_tpu_torch.slam import system
+    from attentive_dfprior_tpu_torch.slam.schedule import UnitSchedule
+
+    class LateMapGrant(UnitSchedule):
+        def unit(self, kind, idx, decide=dict):
+            if self.lead and kind == "map" and idx == OVERLAP_MAP:
+                deadline = time.monotonic() + GROUP_TIMEOUT_S
+                while not granted_before_map(self.records + [{"unit": "map", "idx": idx}], idx):
+                    self.peers.check()
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"no frame after {idx} was granted within {GROUP_TIMEOUT_S} s")
+                    time.sleep(0.01)
+            return super().unit(kind, idx, decide)
+
+    system.UnitSchedule = LateMapGrant
 
 
 def async_equal_child() -> None:
     """Phase 10(a)'s runs, in a child process whose environment sets
     ``CUBLAS_WORKSPACE_CONFIG``: strict, loose and free on frames
-    0..ASYNC_EQUAL_END - 1 with ASYNC_EQUAL_SET, under
-    ``torch.use_deterministic_algorithms``; prints one line, CHILD_TAG and a
-    JSON object: whether the final checkpoints' scene leaves are
-    ``torch.equal``, each run's seconds, events and kernel launches."""
+    0..ASYNC_EQUAL_END - 1 with ASYNC_EQUAL_SET, through the entry point,
+    under ``torch.use_deterministic_algorithms``. Where the launcher's
+    variables name a group (``WORLD_SIZE``, phase 16(a)) the child is one
+    rank of it: it joins over gloo on ``cuda:0`` (NCCL refuses two ranks on
+    one device) and every run sets ``parallel.enable=True``. Prints one line,
+    CHILD_TAG and a JSON object: whether loose's and free's final scene
+    leaves are ``torch.equal`` to strict's, in this process and (on the
+    writer) in the final checkpoints; a digest of each run's leaves and its
+    decision log, for the ranks to be held to each other; each run's
+    seconds, events and kernel launches."""
+    import hashlib
     import warnings
 
     import torch
+    import torch.distributed as dist
 
     sys.path.insert(0, REPO)
     from attentive_dfprior_tpu_torch import run as run_mod
     from attentive_dfprior_tpu_torch.ops.cuda import build
+    from attentive_dfprior_tpu_torch.parallel.sharding import init_distributed
+    from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 
     kernels = build.port_kernels()
     os.chdir(REPO)
     torch.use_deterministic_algorithms(True, warn_only=True)
-    leaves, out = {}, {"runs": {}}
+    ranks = bool(os.environ.get("WORLD_SIZE"))
+    if ranks:
+        init_distributed(backend="gloo", device="cuda:0")
+        late_map_grant()
+    leaves, ckpts, out = {}, {}, {"runs": {}, "rank": dist.get_rank() if ranks else 0}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for sync in ("strict", "loose", "free"):
             out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_equal_{sync}_")
-            argv = [ROOM_TRACKING, "--output", out_dir, "--device", "cuda", "--end_idx", str(ASYNC_EQUAL_END)]
-            for kv in ASYNC_EQUAL_SET + [f"sync_method={sync}"]:
+            argv = [ROOM_TRACKING, "--output", out_dir, "--device", "cuda:0" if ranks else "cuda",
+                    "--end_idx", str(ASYNC_EQUAL_END)]
+            for kv in ASYNC_EQUAL_SET + [f"sync_method={sync}"] + (["parallel.enable=True"] if ranks else []):
                 argv += ["--set", kv]
             for k in kernels:
                 k.launches = 0
             t0 = time.perf_counter()
-            run_mod.main(argv)
+            slam = run_mod.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            with np.load(os.path.join(out_dir, "ckpts", f"{ASYNC_EQUAL_END - 1:05d}.npz")) as ckpt:
-                leaves[sync] = {k: torch.from_numpy(ckpt[k]) for k in ckpt.files if k.startswith("p")}
-            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
-                events = [json.loads(ln)["event"] for ln in f]
+            leaves[sync] = [t.detach().cpu() for t in tree_leaves(slam.params)]
+            events = []
+            if slam.is_writer:
+                with np.load(os.path.join(out_dir, "ckpts", f"{ASYNC_EQUAL_END - 1:05d}.npz")) as ckpt:
+                    ckpts[sync] = {k: torch.from_numpy(ckpt[k]) for k in ckpt.files if k.startswith("p")}
+                with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                    events = [json.loads(ln)["event"] for ln in f]
+            digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in leaves[sync])).hexdigest()
             out["runs"][sync] = {"wall_s": wall, "events": {e: events.count(e) for e in sorted(set(events))},
-                                 "launches": {k.name: k.launches for k in kernels}}
+                                 "launches": {k.name: k.launches for k in kernels}, "digest": digest,
+                                 "log": slam.schedule_records, "role": slam.role}
+    if ranks:
+        dist.destroy_process_group()
     out["n_leaves"] = len(leaves["strict"])
-    out["equal"] = {sync: sorted(leaves[sync]) == sorted(leaves["strict"])
-                    and all(torch.equal(leaves[sync][k], leaves["strict"][k]) for k in leaves["strict"])
+    out["equal"] = {sync: all(torch.equal(a, b) for a, b in zip(leaves[sync], leaves["strict"]))
                     for sync in ("loose", "free")}
-    out["max_abs_diff"] = {sync: max(float((leaves[sync][k] - leaves["strict"][k]).abs().max())
-                                     for k in leaves["strict"] if k in leaves[sync])
+    out["max_abs_diff"] = {sync: max(float((a - b).abs().max()) for a, b in zip(leaves[sync], leaves["strict"]))
                            for sync in ("loose", "free")}
+    if ckpts:
+        out["ckpt_equal"] = {sync: sorted(ckpts[sync]) == sorted(ckpts["strict"])
+                             and all(torch.equal(ckpts[sync][k], ckpts["strict"][k]) for k in ckpts["strict"])
+                             for sync in ("loose", "free")}
     out["warnings"] = sorted({str(w.message).splitlines()[0][:160] for w in caught})
     print(CHILD_TAG + json.dumps(out), flush=True)
 
@@ -713,9 +787,9 @@ def phase_async_equal(paths) -> None:
     for msg in res["warnings"]:
         print(f"async equality: warning: {msg}")
     print(f"async equality (frames 0-{ASYNC_EQUAL_END - 1}, {' '.join(ASYNC_EQUAL_SET)}, deterministic algorithms): "
-          f"{res['n_leaves']} scene leaves of the final checkpoint torch.equal to strict's: "
-          f"{json.dumps(res['equal'])}; max abs diff {json.dumps(res['max_abs_diff'])}")
-    if not all(res["equal"].values()):
+          f"{res['n_leaves']} scene leaves torch.equal to strict's, final checkpoint {json.dumps(res['ckpt_equal'])}, "
+          f"scene {json.dumps(res['equal'])}; max abs diff {json.dumps(res['max_abs_diff'])}")
+    if not (all(res["equal"].values()) and all(res["ckpt_equal"].values())):
         fail(f"async equality: the final scene differs from strict's: {json.dumps(res['max_abs_diff'])}")
 
 
@@ -1414,7 +1488,7 @@ def phase_dp(torch, paths) -> None:
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     rec = os.path.join(work, "slam")
     spec = dict(config=os.path.relpath(ROOM_TRACKING, REPO), overrides=DP_SET, end_idx=DP_END, device="cuda:0",
-                backend="gloo", deterministic=True)
+                backend="gloo", deterministic=True, threads=1)  # one torch CPU thread a child, as phase 16's
     env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # deterministic cuBLAS
     t0 = time.perf_counter()
     started = {
@@ -1473,9 +1547,165 @@ def phase_dp(torch, paths) -> None:
         fail(f"dp (b): not both ranks ran dp mapping through K1: {[(r['dp'], r['launches']) for r in ranks]}")
 
 
+def granted_before_map(log, midx: int):
+    """The frames after ``midx`` whose track unit a decision log
+    (``slam/schedule.py:UnitSchedule.records``) granted before map
+    ``midx``'s unit: the tracker ran them while that map was pending."""
+    units = [(r["unit"], r["idx"]) for r in log]
+    if ("map", midx) not in units:
+        return []
+    return [i for u, i in units[: units.index(("map", midx))] if u == "track" and i > midx]
+
+
+def phase_async_ranks(torch, paths, strict_entry) -> None:
+    """Phase 16, the async agents across processes, every child on
+    ``cuda:0`` over gloo, (a) and (b) at once. (a) phase 10(a)'s child as
+    the two ranks of a group (``async_equal_child``: strict, loose and free
+    in turn through the entry point with ``parallel.enable=True``, GT poses,
+    deterministic): fails unless in each rank loose's and free's final scene
+    leaves are ``torch.equal`` to strict's (and the writer's checkpoints),
+    both ranks hold the same scene, rank 1's decision logs are replays of
+    rank 0's, and loose's and free's logs grant a frame after OVERLAP_MAP
+    before that map (``late_map_grant``: rank 1's own mapper asks first,
+    so it replays an order its own timing would not give). (b)
+    ``parallel.split: {map: 1, track: 1}`` under ``loose`` on frames
+    0..ENTRY_END - 1 as phase 4 runs them (loop closure and the
+    final refine as shipped; no panels), under deterministic algorithms, through
+    ``tools/multihost_smoke.py:slam_worker``: fails without a publish,
+    without K1 on the map rank, on a non-finite loss, when the track rank's
+    final scene is not the map rank's (``compare_async``), or with the trajectory
+    more than SPLIT_TRAJ_GATE_M from phase 4's strict run (without phase 4,
+    a strict single child at phase 4's settings runs beside); prints
+    unaligned and aligned ATE. (b)'s children run in a fresh working
+    directory that holds the prior built here once (the builder's cache,
+    every frame fused as the config asks) instead of fusing the 120 frames
+    each. ``strict_entry``: phase 4's record, or None. The seconds are no
+    speed claim: the ranks time-slice one card."""
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.tools import eval_ate
+    from attentive_dfprior_tpu_torch.tools import multihost_smoke as mh
+    from attentive_dfprior_tpu_torch.tsdf.builder import save_tsdf_volume
+
+    work = fresh_workdir("chip_smoke_async_ranks_", os.path.join(REPO, "configs"))
+    os.chdir(REPO)  # the config's relative paths
+    cfg = load_config(ROOM_TRACKING, default_config_path())
+    t0 = time.perf_counter()
+    cache = save_tsdf_volume(cfg, space=int(cfg["tsdf"]["space"]), device="cuda",
+                             out_dir=os.path.join(work, f"{cfg['data']['dataset']}_tsdf_volume"))
+    print(f"async ranks (b): the prior for the split children built in {time.perf_counter() - t0:.1f} s -> "
+          f"{os.path.relpath(cache, work)}")
+    # one torch CPU thread a child: four children's thread pools would oversubscribe the host's cores
+    base = dict(config=os.path.relpath(ROOM_TRACKING, REPO), device="cuda:0", backend="gloo", threads=1)
+    # (b) as phase 4 runs it, the refine at 100 iterations a frame as shipped (at phase 10(b)'s 20, one
+    # call of three parted 21.71 cm from phase 4, whose refine runs 100), under deterministic
+    # algorithms, so that the loose run's reading repeats from call to call (ROADMAP F2)
+    runs = {"split": (dict(base, overrides=[], end_idx=ENTRY_END, sync="loose", deterministic=True,
+                           split={"map": 1, "track": 1}), 2)}
+    if strict_entry is None:
+        runs["strict_single"] = (dict(base, overrides=[], end_idx=ENTRY_END, sync="strict"), 0)
+    t0 = time.perf_counter()
+    port = mh.free_port()
+    equal = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--async-equal-child"],
+                              env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", RANK=str(r), WORLD_SIZE="2",
+                                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                                       OMP_NUM_THREADS="1"),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    started = {name: mh.start("slam", dict(spec, output=os.path.join(work, name), record=os.path.join(work, name)),
+                              world, {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, cwd=work)
+               for name, (spec, world) in runs.items()}
+    results, errors, outs = {}, [], []
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in equal]
+    finally:
+        for p in equal:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, handle in started.items():  # finish stops its children, whatever happens
+        try:
+            results[name] = mh.finish(handle, timeout=900)
+        except RuntimeError as e:
+            errors.append(f"{name}: {e}")
+    wall = time.perf_counter() - t0
+    lines = [[ln for ln in out.splitlines() if ln.startswith(CHILD_TAG)] for out in outs]
+    if any(p.returncode != 0 for p in equal) or not all(lines):
+        errors.append("(a): " + "\n---\n".join(out[-3000:] for out in outs))
+    if errors:
+        fail("async ranks: " + "\n".join(errors))
+    ranks = [json.loads(ln[-1][len(CHILD_TAG):]) for ln in lines]
+    for name, procs in results.items():
+        for r in procs:
+            paths[f"async_ranks_{name}_rank{r['rank']}"] = r["launches"]
+            print(f"async ranks {name} rank {r['rank']}/{r['world']} ({r['role']}{', writer' if r['writer'] else ''}): "
+                  f"seconds by part {json.dumps({k: round(v, 3) for k, v in r['seconds'].items()})}, "
+                  f"launches {json.dumps(r['launches'])}, {len(r['schedule'])} log records")
+    print(f"async ranks: {wall:.1f} s for {2 + sum(max(w, 1) for _, w in runs.values())} children")
+
+    # (a) shared dp, GT poses: each rank equal to strict on 2 ranks, rank 1 replaying rank 0
+    for res in ranks:
+        for sync, run in res["runs"].items():
+            paths[f"async_ranks_{sync}_dp_rank{res['rank']}"] = run["launches"]
+            print(f"async ranks (a) {sync} rank {res['rank']}/2 ({run['role']}): {run['wall_s']:.1f} s, events "
+                  f"{json.dumps(run['events'])}, launches {json.dumps(run['launches'])}, log {json.dumps(run['log'])}")
+        ckpt = f", final checkpoint {json.dumps(res['ckpt_equal'])}" if "ckpt_equal" in res else ""
+        print(f"async ranks (a) rank {res['rank']}/2 ({' '.join(ASYNC_DP_SET)}, frames 0-{ASYNC_EQUAL_END - 1}, "
+              f"deterministic): {res['n_leaves']} scene leaves torch.equal to strict's on 2 ranks "
+              f"{json.dumps(res['equal'])}{ckpt}; max abs diff {json.dumps(res['max_abs_diff'])}")
+        for msg in res["warnings"]:
+            print(f"async ranks (a): warning: {msg}")
+        if not all(res["equal"].values()) or not all(res.get("ckpt_equal", {}).values()):
+            fail(f"async ranks (a) rank {res['rank']}: the final scene differs from strict's on 2 ranks")
+        if any(run["launches"]["halo_fold"] <= 0 for run in res["runs"].values()):
+            fail(f"async ranks (a) rank {res['rank']}: a run mapped without K1")
+    lead, follower = sorted(ranks, key=lambda r: r["rank"])
+    for sync in ("strict", "loose", "free"):
+        if lead["runs"][sync]["digest"] != follower["runs"][sync]["digest"]:
+            fail(f"async ranks (a) {sync}: the two ranks' final scenes differ")
+        if lead["runs"][sync]["log"] != follower["runs"][sync]["log"]:
+            fail(f"async ranks (a) {sync}: rank 1's decision log is not rank 0's")
+    print("async ranks (a): both ranks' scenes equal and rank 1's logs replays of rank 0's for strict, loose, free")
+    early = {sync: granted_before_map(lead["runs"][sync]["log"], OVERLAP_MAP) for sync in ("loose", "free")}
+    print(f"async ranks (a): frames granted before map {OVERLAP_MAP} (tracked while it was pending; rank 0's "
+          f"mapper asks late, late_map_grant) {json.dumps(early)}")
+    if not all(early.values()):
+        fail(f"async ranks (a): no frame after {OVERLAP_MAP} was granted before map {OVERLAP_MAP}: {json.dumps(early)}")
+
+    # (b) split 1+1, tracking on
+    ranks = results["split"]
+    mapper, tracker = ranks
+    ev = tracker["schedule_events"]
+    arrays = np.load(os.path.join(work, f"split.rank{tracker['rank']}.npz"))
+    est, gt = arrays["traj"], arrays["gt"]
+    if strict_entry is not None:
+        ref = strict_entry["traj"]
+    else:
+        ref = np.load(os.path.join(work, "strict_single.rank0.npz"))["traj"]
+    gap = np.linalg.norm(est[:, :3, 3] - ref[:, :3, 3], axis=1)
+    err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+    _, _, aligned = eval_ate.align(gt[:, :3, 3].T.astype(np.float64), est[:, :3, 3].T.astype(np.float64))
+    pubs = [i for e, i in ev if e == "publish"]
+    print(f"async ranks (b) split 1+1 loose, frames 0-{ENTRY_END - 1} (as phase 4): events "
+          f"{json.dumps(ev)}; the map rank's jobs {json.dumps(mapper['schedule'])}; the track lead's log "
+          f"{json.dumps(tracker['schedule'])}; kinds {tracker['events']}")
+    replicas_equal = mh.compare_async(ranks, os.path.join(work, "split"))["replicas_equal"]
+    print(f"async ranks (b) split: unaligned ATE RMSE {100 * float(np.sqrt(np.mean(err ** 2))):.3f} cm, aligned "
+          f"{100 * float(np.sqrt(np.mean(aligned ** 2))):.3f} cm; gap to phase 4's strict run per frame (cm) "
+          + " ".join(f"{100 * g:.2f}" for g in gap) + f"; replicas equal {replicas_equal}")
+    if not replicas_equal:
+        fail("async ranks (b) split: the track rank's final scene is not the map rank's (the last broadcast)")
+    if not pubs:
+        fail("async ranks (b) split: no publish")
+    if mapper["launches"]["halo_fold"] <= 0:
+        fail(f"async ranks (b) split: the map rank launched no K1: {mapper['launches']}")
+    if not (mapper["all_map_losses_finite"] and np.isfinite(tracker["track_losses"]).all()):
+        fail("async ranks (b) split: a non-finite loss")
+    if float(gap.max()) > SPLIT_TRAJ_GATE_M:
+        fail(f"async ranks (b) split: the trajectory parts from phase 4's strict run by {100 * gap.max():.2f} cm")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13,15",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13,15,16",
                     help="comma-separated phases to run (6, 8, 9, 11 and 14 only on request)")
     ap.add_argument("--async-equal-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -1586,6 +1816,9 @@ def main() -> None:
     if 15 in phases:
         phase_dp(torch, paths)
         done(15)
+    if 16 in phases:
+        phase_async_ranks(torch, paths, strict_entry)
+        done(16)
     if 14 in phases:
         t0 = time.perf_counter()
         path, losses = drive("pretrain_full", phase_pretrain, torch, dev, 6000)

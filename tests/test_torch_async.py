@@ -87,28 +87,57 @@ def test_gt_camera_async_equals_strict(strict_gt, tmp_path, sync):
     assert [r["idx"] for r in maps] == [0, 5, N_FRAMES - 1] and len(pubs) == len(maps)
 
 
-def test_loose_schedule_matches_jax(loose_run, tmp_path):
-    from attentive_dfprior_tpu.models.scene import SceneConfig as JSceneConfig
-    from attentive_dfprior_tpu.models.scene import init_scene as j_init_scene
-    from attentive_dfprior_tpu.slam.system import SLAMSystem as JSLAMSystem
-    from attentive_dfprior_tpu.utils.logger import load_checkpoint as j_load_checkpoint
-
-    slam, records = loose_run
-    cfg = async_cfg("loose")
+def jax_config(cfg, parallel=None):
+    """The port's test config ``cfg`` as the JAX package reads it:
+    room_tracking.yaml with ``cfg``'s sections, sync method and frame count,
+    and ``parallel`` (over the 8 virtual CPU devices of tests/conftest.py)."""
     jcfg = j_load_config(os.path.join(REPO, "configs", "Synthetic", "room_tracking.yaml"), j_default_cfg())
     for k in ("cam", "tracking", "mapping", "tsdf", "rendering", "loop_closure", "pretrained_decoders", "meshing"):
         jcfg[k] = dict(cfg[k])
-    jcfg.update(sync_method="loose", verbose=False)
-    jcfg["data"]["n_frames"] = N_FRAMES
-    jslam = JSLAMSystem(jcfg, output=str(tmp_path / "jax"))
-    jslam._side_outputs = lambda *a, **k: None  # the schedule only: no meshes
-    jslam.run()
-    jrecords = [json.loads(ln) for ln in open(os.path.join(str(tmp_path / "jax"), "metrics.jsonl"))]
+    jcfg.update(sync_method=cfg["sync_method"], verbose=False)
+    jcfg["data"]["n_frames"] = cfg["data"]["n_frames"]
+    if parallel is not None:
+        jcfg["parallel"] = parallel
+    return jcfg
 
-    def schedule(recs):
-        ev = [r["event"] for r in recs]
-        return ([r["idx"] for r in recs if r["event"] == "map"], ev.count("map"), ev.count("track"),
-                ev.count("publish") + ev.count("publish_skip"))
+
+def run_jax(cfg, out, parallel=None):
+    """The JAX package's ``SLAMSystem.run`` on ``jax_config(cfg,
+    parallel)``, side outputs off (the schedule only: no meshes); the
+    system and its ``metrics.jsonl`` records."""
+    from attentive_dfprior_tpu.slam.system import SLAMSystem as JSLAMSystem
+
+    jslam = JSLAMSystem(jax_config(cfg, parallel), output=str(out))
+    jslam._side_outputs = lambda *a, **k: None
+    jslam.run()
+    return jslam, [json.loads(ln) for ln in open(os.path.join(str(out), "metrics.jsonl"))]
+
+
+def schedule(records):
+    """An async run's schedule from its ``metrics.jsonl`` records: the
+    mapped frames, the counts of maps and tracked frames, and the publishes
+    with the skipped ones."""
+    ev = [r["event"] for r in records]
+    return ([r["idx"] for r in records if r["event"] == "map"], ev.count("map"), ev.count("track"),
+            ev.count("publish") + ev.count("publish_skip"))
+
+
+def load_in_jax(ckpt, jslam):
+    """The port's checkpoint ``ckpt`` through the JAX ``load_checkpoint``
+    on the scene template of the JAX run ``jslam``: its leaves (numpy) and
+    its metadata."""
+    from attentive_dfprior_tpu.models.scene import SceneConfig as JSceneConfig
+    from attentive_dfprior_tpu.models.scene import init_scene as j_init_scene
+    from attentive_dfprior_tpu.utils.logger import load_checkpoint as j_load_checkpoint
+
+    template = j_init_scene(jax.random.PRNGKey(0), JSceneConfig.from_config(jslam.cfg, pretrained_loaded=True))
+    jparams, meta = j_load_checkpoint(ckpt, template)
+    return [np.asarray(a) for a in jax.tree_util.tree_leaves(jparams)], meta
+
+
+def test_loose_schedule_matches_jax(loose_run, tmp_path):
+    slam, records = loose_run
+    jslam, jrecords = run_jax(async_cfg("loose"), tmp_path / "jax")
 
     assert schedule(records) == schedule(jrecords)
     maps, n_map, _, n_pub = schedule(records)
@@ -116,11 +145,10 @@ def test_loose_schedule_matches_jax(loose_run, tmp_path):
     assert slam.keyframes.frame_idx == jslam.keyframes.frame_idx == [0, 5]
 
     ckpt = os.path.join(slam.output, "ckpts", f"{N_FRAMES - 1:05d}.npz")
-    template = j_init_scene(jax.random.PRNGKey(0), JSceneConfig.from_config(jcfg, pretrained_loaded=True))
-    jparams, meta = j_load_checkpoint(ckpt, template)
+    jleaves, meta = load_in_jax(ckpt, jslam)
     assert meta["idx"] == N_FRAMES - 1 and list(meta["keyframe_idx_list"]) == [0, 5]
-    for a, b in zip(jax.tree_util.tree_leaves(jparams), tree_leaves(slam.params)):
-        np.testing.assert_array_equal(np.asarray(a), b.detach().numpy())
+    for a, b in zip(jleaves, tree_leaves(slam.params)):
+        np.testing.assert_array_equal(a, b.detach().numpy())
 
     strict, _ = run_port(async_cfg("strict"), tmp_path / "strict")
     est, ref = slam.estimate_c2w_list[:N_FRAMES], strict.estimate_c2w_list[:N_FRAMES]

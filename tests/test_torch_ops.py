@@ -320,9 +320,13 @@ def test_entry_points_refuse_missing_cuda_and_unported_modes(tmp_path):
 
 @pytest.mark.parametrize("case", ["split", "loose_on_2_ranks", "free_on_2_ranks"])
 def test_async_agents_under_dp_raise(tmp_path, monkeypatch, case):
-    """``parallel.split``, and ``loose`` / ``free`` on a dp group of 2 or
-    more ranks, raise naming their ROADMAP.md item (a 2-rank group stands
-    in for ``mesh_from_config``'s, no sockets needed)."""
+    """The async agents across ranks refuse a world that cannot hold them:
+    ``parallel.split`` with more ranks than the world has raises the JAX
+    ``split_meshes_from_config``'s error, and ``loose`` / ``free`` on a dp
+    group of 2 ranks with no process group behind it (a 2-rank group stands
+    in for ``mesh_from_config``'s, no sockets needed) raise, since each
+    agent needs a group of its own. The runs themselves are
+    tests/test_torch_async_dp.py's and tests/test_torch_split.py's."""
     from attentive_dfprior_tpu_torch.parallel.sharding import RayShards
     from attentive_dfprior_tpu_torch.slam import system as sysmod
     from test_torch_slam import tiny_room_cfg
@@ -333,5 +337,6 @@ def test_async_agents_under_dp_raise(tmp_path, monkeypatch, case):
     else:
         monkeypatch.setattr(sysmod, "mesh_from_config", lambda c: RayShards(size=2, ranks=(0,)))
         cfg = dict(cfg, sync_method=case.split("_")[0], parallel={"enable": True})
-    with pytest.raises(NotImplementedError, match="Sharding: the async agents"):
+    match = "exceeds 1 devices" if case == "split" else "needs the process group"
+    with pytest.raises(ValueError, match=match):
         sysmod.SLAMSystem(cfg, output=str(tmp_path), device="cpu")
