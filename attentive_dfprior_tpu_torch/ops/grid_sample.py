@@ -191,8 +191,13 @@ def _cell_stencil_grid_grad(grid_shape, p_norm, ct):
     """Cell scatter, one corner-major transpose, then the 8 corner slabs,
     each shifted by its corner offset with zeros in front, summed one after
     another (ref: ops/grid_sample.py:325-361)."""
+    return _corner_slab_sum(grid_shape, _cell_scatter(grid_shape, p_norm, ct))
+
+
+def _corner_slab_sum(grid_shape, cells: torch.Tensor) -> torch.Tensor:
+    """The stencil half of ``_cell_stencil_grid_grad``: (nvox, 8C) cell
+    rows -> the (nx, ny, nz, C) grid gradient."""
     nx, ny, nz, C = grid_shape
-    cells = _cell_scatter(grid_shape, p_norm, ct)
     corner_major = cells.reshape(nx * ny * nz, 8, C).transpose(0, 1).contiguous()
     out = None
     ci = 0

@@ -37,13 +37,14 @@ import argparse
 import json
 import os
 import shutil
-import subprocess
 import tempfile
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from attentive_dfprior_tpu_torch.utils.device import card_name_and_power
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CONFIG = os.path.join(REPO, "configs", "Synthetic", "room_tracking.yaml")
@@ -52,19 +53,6 @@ REPS = (("strict_warm", "strict"), ("loose", "loose"), ("strict", "strict"))
 RANK_REPS = (("strict_dp_warm", "strict", "dp"), ("loose_dp_warm", "loose", "dp"),
              ("loose_split_warm", "loose", "split"), ("strict_dp", "strict", "dp"),
              ("loose_dp", "loose", "dp"), ("loose_split", "loose", "split"))
-
-
-def card_name_and_power() -> str:
-    """``nvidia-smi``'s name and power limit of the card, or a note why not."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        )
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f"not read ({type(e).__name__})"
-    lines = out.stdout.strip().splitlines()
-    return lines[0] if out.returncode == 0 and lines else "not read"
 
 
 def run_mode(sync: str, frames: int, out: str, device: str, parallel: Optional[Dict[str, Any]] = None,

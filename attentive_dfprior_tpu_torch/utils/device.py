@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import os
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -36,3 +37,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and dev.index is None and dist.is_initialized():
         dev = torch.device("cuda", local_rank())
     return dev
+
+
+def card_name_and_power() -> str:
+    """``nvidia-smi``'s name and power limit of the card, or a note why not."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"not read ({type(e).__name__})"
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if out.returncode == 0 and lines else "not read"

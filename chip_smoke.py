@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-5, 7, 10, 12, 13, 15 and 16, one card
+    python3 chip_smoke.py                # phases 1-5, 7, 10, 12, 13, 15, 16 and 17, one card
     python3 chip_smoke.py --phases 1,2   # build + kernel checks only
     python3 chip_smoke.py --phases 1,8   # the room.yaml quality run
     python3 chip_smoke.py --phases 1,9   # the room_tracking.yaml quality run
@@ -11,6 +11,8 @@
     python3 chip_smoke.py --phases 1,14  # the full decoder pretrain and its prior's gates
     python3 chip_smoke.py --phases 1,15  # ray-axis data parallelism alone
     python3 chip_smoke.py --phases 1,16  # the async agents across processes alone
+    python3 chip_smoke.py --phases 1,17  # the harnesses alone
+    python3 chip_smoke.py --phases 1,18  # the tracking ablation (two variants, 16 frames)
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
@@ -20,13 +22,14 @@ Phases (each failure exits non-zero):
   2. every kernel against its plain PyTorch version on the card, at odd
      shapes and at the main path's shapes, with CUDA-event timings; K3
      also against K1;
-  3. the room0-shape SLAM cycle (the workload of bench.py) under the
-     ``halo`` grid gradient (K1) and the ``pallas`` one (K3), timed in
-     turns: one mapped frame of 25/12/23 stage iterations x 1000 rays x 48
-     samples over a window of 5 synthetic 680x1200 frames, a random
-     4/256 m prior of ~196 M voxels, then 5 tracked frames of 10 iterations
-     x 200 rays. The halo cycle is profiled at the very end of the run: the
-     profiler slows what runs after it in the process;
+  3. the room0-shape SLAM cycle (``tools/bench.py``'s replica workload,
+     from its builder) under the ``halo`` grid gradient (K1) and the
+     ``pallas`` one (K3), timed in turns: one mapped frame of 25/12/23
+     stage iterations x 1000 rays x 48 samples over a window of 5 random
+     680x1200 frames, a random 4/256 m prior of ~196 M voxels, then 5
+     tracked frames of 10 iterations x 200 rays. The halo cycle is
+     profiled at the very end of the run: the profiler slows what runs
+     after it in the process;
   4. the entry point ``attentive_dfprior_tpu_torch.run`` on
      configs/Synthetic/room_tracking.yaml as configured (loop closure on)
      with panels every 5th frame, frames 0..15 (tracks 1-15, maps 0, 5, 10
@@ -46,10 +49,10 @@ Phases (each failure exits non-zero):
   7. the Mesher: ``SLAMSystem.get_mesh`` on phase 4's map (K2 on the path),
      then once more with the plain MLP: field-query and host seconds, and
      accuracy / completion / ratio against the synthetic GT mesh culled to
-     frames 0-15 (printed, no gate);
+     frames 0-15 (printed, no gate; ``tools/eval_synthetic_demo.py``'s
+     scorer, as are phases 9 and 12's);
   8. (only on request) the whole configs/Synthetic/room.yaml run (80
-     frames, GT poses) and its ``final_mesh_eval_rec.ply`` scored as
-     scripts/eval_synthetic_demo.py scores it, with the port's own tools;
+     frames, GT poses) scored by ``tools/eval_synthetic_demo.py``;
      gate: accuracy <= 2.2 cm, completion <= 2.0 cm, ratio >= 94 %;
   9. (only on request) the whole configs/Synthetic/room_tracking.yaml run
      as shipped (120 frames, seed 0, loop closure, panels at the config's
@@ -76,14 +79,15 @@ Phases (each failure exits non-zero):
  12. configs/Replica/room0.yaml through the file-backed entry point at its
      full width: in a fresh working directory (links to the repo's
      ``configs/`` and ``pretrained/``, no prior cache), a Replica-layout
-     fixture of frames 0..10 of room_tracking.yaml's trajectory rendered at
+     fixture of frames 0..5 of room_tracking.yaml's trajectory rendered at
      room0's 680x1200 camera (``results/frame*.jpg`` written with OpenCV,
      ``results/depth*.png`` uint16 depth x 6553.5, ``traj.txt`` OpenCV
      c2w), read back through ``Replica`` (depth and poses exact, colour mean
      abs error at most 2/255); the TSDF builder's CLI with
      ``--input_folder`` (room0's prior, voxel 4/256 m, every frame); then
      ``attentive_dfprior_tpu_torch.run`` with ``--input_folder``, panels
-     every 5th frame: tracks 1-10, maps 0, 5 and 10. Fails on a
+     every 5th frame, the first map cut to 250 of its 1500 iterations:
+     tracks 1-5, maps 0 and 5. Fails on a
      non-finite loss, another mapping schedule, a prior not loaded from the
      builder's cache, no K1 or K2 launch, or unaligned ATE above 10 cm;
      prints aligned ATE, seconds by part, peak device memory and the mesh's
@@ -91,7 +95,7 @@ Phases (each failure exits non-zero):
  13. the loaders and tools: (a) a ScanNet-layout fixture of 3 frames at
      configs/ScanNet/scene0000.yaml's 480x640 camera read back through
      ``ScanNet`` (460x620 after ``crop_edge`` 10, depth and poses exact);
-     (b) ``tools/pretrain_decoders.py`` at its shipped widths for 250 steps
+     (b) ``tools/pretrain_decoders.py`` at its shipped widths for 100 steps
      (finite losses, the last below the first, two K1 launches a step, the
      ``.npz`` through ``load_pretrained_npz``); (c) ``tools/evaluate_scannet.py``
      ``refuse`` on the card: the synthetic GT mesh re-fused along phase 12's
@@ -135,13 +139,26 @@ Phases (each failure exits non-zero):
      algorithms: publishes, K1 on the map
      rank, finite losses, the track rank's final scene (the last broadcast)
      equal to the map rank's, the trajectory within 20 cm of phase 4's
-     strict run; unaligned and aligned ATE printed.
+     strict run; unaligned and aligned ATE printed;
+ 17. the harnesses: (a) ``tools/bench.py --workload scannet`` at 3 reps
+     (the ScanNet shape: 5000 rays x 60 mapping iterations over a window
+     of 10 random 480x640 frames, 5 x 50 x 1000 tracking rays, a random
+     345 M-voxel prior; phase 3 runs the replica workload): its JSON line;
+     fails on a non-finite loss, without K1 or without peak memory; (b) ``tools/profile_mapping.py``,
+     every row: fails on a non-finite row, unless K1 runs in the ``halo``
+     rows alone and K3 in the ``pallas`` rows alone; (c)
+     ``tools/bench_scaling.py --devices 1 --pixels 1000,5000`` (a child, a
+     world of one on NCCL) and its comm model's prediction for 2, 4 and 8
+     H100s; fails on a non-finite loss or without K1;
+ 18. (only on request) ``tools/ablate_tracking.py --variants base,nodyn
+     --end_idx 16`` and ``tools/collect_ablation.py``: each variant's
+     aligned ATE (printed, no gate).
 
 Every path (each timed variant of phase 3, phases 4, 5, 5(b), 7, 8, 9, 10,
-11, 12, 13(b) and 14, each of phase 10(a)'s three runs, each of phase
-15(b)'s four processes and each of phase 16's, counted in its child
-process) runs with
-the launch counts set to 0 just before it and read just after; the
+11, 12, 13(b), 14, 17(a), 17(b) and 18, each of phase 10(a)'s three runs,
+and each of phase 15(b)'s four processes, phase 16's and phase 17(c)'s,
+counted in its child process) runs with the launch counts set to 0 just
+before it and read just after; the
 ``kernels`` JSON line reports each kernel's launches over those paths with
 its error, time, plain time and bound. The last line is the contract's
 ``{"ok": true, ...}``.
@@ -164,7 +181,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-ROOM0_BOUND = [[-2.9, 8.94], [-3.2, 5.76], [-3.5, 3.54]]
 ROOM_TRACKING = os.path.join(REPO, "configs", "Synthetic", "room_tracking.yaml")
 ROOM = os.path.join(REPO, "configs", "Synthetic", "room.yaml")
 ROOM_GATE = {"accuracy_cm": 2.2, "completion_cm": 2.0, "completion_ratio_pct": 94.0}
@@ -181,9 +197,10 @@ LOOSE_REFINE_ITERS = 20  # phase 10(b)'s final refine, cut from 100 to keep the 
 CHILD_TAG = "ASYNC_EQUAL "  # the prefix of phase 10(a)'s result line in the child's output
 REPLICA_ROOM0 = os.path.join("configs", "Replica", "room0.yaml")  # from a working directory linking configs/
 SCANNET_SCENE = os.path.join("configs", "ScanNet", "scene0000.yaml")
-REPLICA_END = 11  # phase 12: frames 0..10, mapped at 0, 5 and 10 (every_frame 5, last frame); cut from 16 for time
+REPLICA_END = 6  # phase 12: frames 0..5, mapped at 0 and 5 (every_frame 5, the last frame); cut from 16, then 11
+REPLICA_ITERS_FIRST = 250  # phase 12's first map: 250 of the config's 1500 iterations (cut for time)
 COLOR_MEAN_GATE = 2.0 / 255  # phase 12-13: JPEG at OpenCV's default quality 95
-PRETRAIN_STEPS = 250  # phase 13(b): 250 of the tool's 6000 (cut from 500 for time)
+PRETRAIN_STEPS = 100  # phase 13(b): 100 of the tool's 6000 (cut from 500, then 250, for time)
 REFUSE_RECALL_GATE, REFUSE_COMP_GATE = 0.95, 0.01  # phase 13(c): the GT re-fused covers what the poses see
 IMPORTANCE_N = 16  # phase 5(b): rendering.N_importance
 DP_END = 6  # phase 15(b): frames 0..5 (maps 0 and 5, the colour refine at 5, the last frame)
@@ -196,6 +213,14 @@ DP_SET = ["data.n_frames=6", f"loop_closure.refine_iters={DP_REFINE_ITERS}", f"m
 ASYNC_DP_SET = ASYNC_EQUAL_SET + ["parallel.enable=True"]  # phase 16(a): phase 10(a)'s runs on 2 ranks (the printout)
 # phase 16(b) against phase 4's strict run: the JAX split test's 20 cm (tests/test_sharding.py:306)
 SPLIT_TRAJ_GATE_M = 0.20
+# phase 17(a): the ScanNet shape (phase 3 times the replica workload on the same builder)
+BENCH_WORKLOAD, BENCH_REPS = "scannet", 3
+PROFILE_ITERS = 5  # phase 17(b): iterations a timing (10 in the tool's default; cut for time)
+# phase 17(b): the rows whose grid gradient runs K1 (K3: the scatter_bwd_pallas_* rows)
+PROFILE_HALO_ROWS = ("full_iter_color", "fwd_bwd_color", "scatter_bwd_grid_low", "scatter_bwd_grid_high",
+                     "scatter_bwd_grid_color", "scatter_bwd_pair_highcolor")
+SCALING_PIXELS = "1000,5000"  # phase 17(c): the Replica and ScanNet rays a mapping iteration
+ABLATION_VARIANTS, ABLATION_END = "base,nodyn", 16  # phase 18
 
 
 def fail(msg: str) -> None:
@@ -406,76 +431,24 @@ def phase_kernels(torch, dev):
 
 
 def phase_room0(torch, dev, kernels):
-    """The room0-shape cycle under the ``halo`` (K1) and ``pallas`` (K3)
-    grid gradients, each from its own copy of one initial scene and its own
-    copy of one pixel-draw stream, timed in turns. Returns ({variant:
-    result}, {variant: cycle}); each result's ``launches`` are the kernels'
-    launches over its timed cycles. The profile (``profile_cycles``) runs
-    last in the script: the profiler slows what runs after it."""
-    from attentive_dfprior_tpu_torch.camera import Camera
-    from attentive_dfprior_tpu_torch.models.scene import SceneConfig, init_scene
-    from attentive_dfprior_tpu_torch.ops.adam import adam_init
-    from attentive_dfprior_tpu_torch.render.renderer import RenderConfig
-    from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, mapping_stage
-    from attentive_dfprior_tpu_torch.slam.tracker import track_frame
-    from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
+    """The room0-shape cycle (``tools/bench.py``'s replica workload, built
+    by its ``build_workload`` and ``make_cycle``) under the ``halo`` (K1)
+    and ``pallas`` (K3) grid gradients, each from its own copy of one
+    initial scene and its own copy of one pixel-draw stream, timed in
+    turns. Returns ({variant: result}, {variant: cycle}); each result's
+    ``launches`` are the kernels' launches over its timed cycles. The
+    profile (``profile_cycles``) runs last in the script: the profiler
+    slows what runs after it."""
+    from attentive_dfprior_tpu_torch.tools import bench
 
-    bound = np.array(ROOM0_BOUND)
-    scfg = SceneConfig(bound=bound, c_dim=32, low_grid_len=0.32, high_grid_len=0.16,
-                       color_grid_len=0.16, fix_high=False, fix_color=False)
-    g = torch.Generator(device=dev).manual_seed(1)
-    voxel = 4.0 / 256
-    dims = tuple(int(np.ceil((bound[i, 1] - bound[i, 0]) / voxel)) for i in range(3))
-    tsdf = torch.rand(dims, generator=g, device=dev) * 2.0 - 1.0
-    print(f"room0 prior: {dims} = {int(np.prod(dims)) / 1e6:.1f} M voxels")
-    tb = torch.tensor(bound, dtype=torch.float32, device=dev)
-    cam = Camera(H=680, W=1200, fx=600.0, fy=600.0, cx=599.5, cy=339.5)
-    rcfg = RenderConfig(N_samples=32, N_surface=16)
-    F = 5
-    colors = torch.rand((F, cam.H, cam.W, 3), generator=g, device=dev)
-    depths = torch.rand((F, cam.H, cam.W), generator=g, device=dev) * 3.5 + 0.5
-    c2w = torch.eye(4, device=dev)
-    c2w[:3, 3] = torch.tensor([2.0, 1.0, 0.0])
-    c2ws = c2w.expand(F, 4, 4).contiguous()
-    lrs = StageLRs(decoders=5e-3, mlp=5e-3, low=5e-3, high=5e-3, color=5e-3)
-    iters = {"low": 25, "high": 12, "color": 23}
-    cam_t = torch.tensor([1.0, 0.0, 0.0, 0.0, 2.0, 1.0, 0.0], device=dev)
-    rays = 1000 * sum(iters.values()) + 5 * 200 * 10
+    wl = bench.build_workload("replica", dev)
+    print(f"room0 prior: {tuple(wl.tsdf.shape)} = {wl.tsdf.numel() / 1e6:.1f} M voxels")
+    rays = bench.rays_per_cycle("replica")
     own = {"halo": "halo_fold", "pallas": "cell_stencil"}
-
-    def make_cycle(grid_vjp):
-        params = init_scene(torch.Generator().manual_seed(0), scfg, device=dev)
-        for t in tree_leaves(params):
-            t.requires_grad_(True)
-        draws = torch.Generator(device=dev).manual_seed(2)
-
-        def cycle():
-            """One mapped frame, then 5 tracked frames: (losses, map s, track s)."""
-            astate = adam_init(params)
-            losses = []
-            t0 = time.perf_counter()
-            for stage, n in iters.items():
-                losses.append(mapping_stage(
-                    params, astate, colors, depths, c2ws, None, tsdf, tb, tb, n, [0.0] * n,
-                    lrs, stage, 1000 // F, cam, rcfg, (False, False), 0.2, generator=draws, grid_vjp=grid_vjp,
-                ))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(5):
-                _, tl, _, _ = track_frame(
-                    params, cam_t, colors[0], depths[0], tsdf, tb, tb, cam, rcfg, 200, 10,
-                    100, 100, True, True, 0.5, 1e-3, generator=draws, grid_vjp=grid_vjp,
-                )
-                losses.append(tl)
-            torch.cuda.synchronize()
-            return torch.cat(losses), t1 - t0, time.perf_counter() - t1
-
-        return params, cycle
-
     variants = ("halo", "pallas")
     cycles = {}
     for v in variants:
-        params, cycles[v] = make_cycle(v)
+        params, cycles[v] = bench.make_cycle(wl, v)
     print(f"room0 grids: low {tuple(params['grid_low'].shape)}, high {tuple(params['grid_high'].shape)}")
     for v in variants:
         cycles[v]()  # warm-up: allocator, cuBLAS handles, kernel loads
@@ -530,24 +503,30 @@ def profile_cycle(torch, cycle, cycle_s: float, label: str) -> None:
     host's operators, which the profile does not read, took it from about
     two minutes to one): the device's busy share of the unprofiled cycle
     time, the number of device kernels, and the kernels that take the most
-    device time."""
+    device time. The device's events are summed straight from the trace:
+    ``key_averages()`` builds a Python event per kernel first, which took
+    many times longer than the sums at a cycle's 229,255 kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cycle()
-    dev = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
+    by_name = {}  # kernel name -> (launches, device ns)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            n, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (n + 1, ns + e.duration_ns())
     print(f"room0 profile ({label}): {time.perf_counter() - t0:.1f} s to trace and sum the cycle")
-    busy_s = sum(a.self_device_time_total for a in dev) / 1e6
+    busy_s = sum(ns for _, ns in by_name.values()) / 1e9
     if busy_s <= 0:
         print(f"room0 profile ({label}): the profiler recorded no device time (not measured)")
         return
-    n_kernels = sum(a.count for a in dev)
+    n_kernels = sum(n for n, _ in by_name.values())
     print(f"room0 profile ({label}): device busy {busy_s:.4f} s of the {cycle_s:.4f} s cycle "
           f"({100 * busy_s / cycle_s:.1f} %), {n_kernels} device kernels per cycle")
-    for a in sorted(dev, key=lambda a: -a.self_device_time_total)[:12]:
-        print(f"  {a.self_device_time_total / 1e3:9.3f} ms  {a.count:6d} x  {a.key[:90]}")
+    for name, (n, ns) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"  {ns / 1e6:9.3f} ms  {n:6d} x  {name[:90]}")
 
 
 def expected_panels(cfg, start: int, n: int, n_img: int):
@@ -888,25 +867,13 @@ def phase_render(torch, dev, slam, n_importance: int = 0):
         fail(f"{label}: K2 moves the mean depth {gap:.3e} m from the plain MLP's (limit {RENDER_GAP_M} m)")
 
 
-def score_meshes(cfg, cam, meshes, gt_poses):
-    """acc / comp / ratio of each (verts, faces) against the synthetic
-    scene's GT mesh culled to ``gt_poses``, as
-    scripts/eval_synthetic_demo.py scores it (GT lattice 192, 200k surface
-    samples, ICP), with the port's tools."""
-    from attentive_dfprior_tpu_torch.tools.cull_mesh import cull_mesh
-    from attentive_dfprior_tpu_torch.tools.eval_recon import calc_3d_metric
-    from attentive_dfprior_tpu_torch.utils.synthetic import SyntheticScene
-
-    gt_v, gt_f, _ = SyntheticScene.from_config(cfg).gt_mesh(resolution=192)
-    gt_cv, gt_cf = cull_mesh(gt_v, gt_f, gt_poses, H=cam.H, W=cam.W, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
-    return [calc_3d_metric(verts, faces, gt_cv, gt_cf, n_samples=200_000) for verts, faces in meshes]
-
-
 def phase_mesh(torch, dev, slam):
     """SLAMSystem.get_mesh on phase 4's map with every frame's pose in the
     visibility mask (the eval_rec mesh), through K2 and then with the plain
     MLP, both scored against the GT culled to the frames run: the gap between
     the two is K2's own, the rest moves with the map between runs."""
+    from attentive_dfprior_tpu_torch.tools.eval_synthetic_demo import score_meshes
+
     last = ENTRY_END - 1
     m = slam.mesher
     meshes = []
@@ -936,9 +903,10 @@ def phase_mesh(torch, dev, slam):
 
 def phase_room_yaml(torch, dev):
     """configs/Synthetic/room.yaml end to end through the entry point, then
-    its final_mesh_eval_rec.ply scored; fails outside ROOM_GATE."""
+    scored by ``tools/eval_synthetic_demo.py`` on its output; fails outside
+    ROOM_GATE."""
     from attentive_dfprior_tpu_torch import run as run_mod
-    from attentive_dfprior_tpu_torch.utils.ply import read_ply
+    from attentive_dfprior_tpu_torch.tools import eval_synthetic_demo
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_room_")
     os.chdir(REPO)
@@ -948,10 +916,9 @@ def phase_room_yaml(torch, dev):
     wall = time.perf_counter() - t0
     timings = {k: round(v, 3) for k, v in slam.timings.items()}
     print(f"room.yaml: {wall:.1f} s for {slam.last_idx + 1} frames (seconds by part: {json.dumps(timings)})")
-    rec_v, rec_f, _ = read_ply(os.path.join(out_dir, "mesh", "final_mesh_eval_rec.ply"))
-    metrics = score_meshes(slam.cfg, slam.cam, [(rec_v, rec_f)], slam.gt_c2w_list)[0]
-    print(f"room.yaml final_mesh_eval_rec.ply ({len(rec_v)} vertices, {len(rec_f)} faces) vs GT: "
-          f"{json.dumps(metrics)}; gate {json.dumps(ROOM_GATE)}")
+    scored = eval_synthetic_demo.evaluate(ROOM, out_dir)
+    metrics = scored["metrics_3d"]
+    print(f"room.yaml eval_synthetic_demo: {json.dumps(scored)}; gate {json.dumps(ROOM_GATE)}")
     bad = [k for k, lim in ROOM_GATE.items()
            if (metrics[k] < lim if k == "completion_ratio_pct" else metrics[k] > lim)]
     if bad:
@@ -964,6 +931,7 @@ def phase_room_tracking(torch, dev, sync: str = "strict"):
     ``sync_method=loose`` (phase 11; printed beside phase 9's strict run,
     no gate)."""
     from attentive_dfprior_tpu_torch import run as run_mod
+    from attentive_dfprior_tpu_torch.tools.eval_synthetic_demo import score_meshes
     from attentive_dfprior_tpu_torch.utils.ply import read_ply
 
     out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_tracking_{sync}_")
@@ -1180,6 +1148,7 @@ def phase_replica(torch, dev, configs_dir: str):
 
     from attentive_dfprior_tpu_torch import run as run_mod
     from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.tools.eval_synthetic_demo import score_meshes
     from attentive_dfprior_tpu_torch.tsdf import builder
     from attentive_dfprior_tpu_torch.utils.datasets import get_dataset
     from attentive_dfprior_tpu_torch.utils.ply import read_ply
@@ -1213,7 +1182,7 @@ def phase_replica(torch, dev, configs_dir: str):
 
     out_dir = os.path.join(work, "out")
     argv = [REPLICA_ROOM0, "--input_folder", fixture, "--output", out_dir, "--device", dev.type,
-            "--end_idx", str(REPLICA_END), *PANELS_EVERY_5]
+            "--end_idx", str(REPLICA_END), "--set", f"mapping.iters_first={REPLICA_ITERS_FIRST}", *PANELS_EVERY_5]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     slam = run_mod.main(argv)
@@ -1703,10 +1672,107 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
         fail(f"async ranks (b) split: the trajectory parts from phase 4's strict run by {100 * gap.max():.2f} cm")
 
 
+def phase_harnesses(torch, drive, paths) -> None:
+    """Phase 17, the port's harnesses on the card, each through its own
+    ``main``: (a) ``tools/bench.py --workload BENCH_WORKLOAD`` at BENCH_REPS
+    reps (the ScanNet shape: 345 M prior voxels, 5000 rays over a window
+    of 10); fails on a non-finite loss, without K1 in the cycle, or
+    without peak memory; (b)
+    ``tools/profile_mapping.py`` over every row; fails on a non-finite
+    row, unless K1 runs in the ``halo`` rows alone and K3 in the ``pallas``
+    rows alone; (c) ``tools/bench_scaling.py --devices 1 --pixels
+    SCALING_PIXELS``, a world of one on NCCL, with the comm model's
+    prediction for 2, 4 and 8 H100s; fails on a non-finite loss or without
+    K1 in the child."""
+    from attentive_dfprior_tpu_torch.tools import bench, bench_scaling, profile_mapping
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_harnesses_")
+    os.chdir(REPO)
+
+    # (a) the benchmark's JSON line
+    t0 = time.perf_counter()
+    out = drive("bench", bench.main, ["--workload", BENCH_WORKLOAD, "--reps", str(BENCH_REPS),
+                                      "--out", os.path.join(work, "bench.json")])
+    recs = {out["workload"]: out["record"]}
+    if "scannet" in out:
+        recs["scannet"] = out["scannet"]
+    for name, rec in recs.items():
+        mem = rec["device_peak_mem_gb"]
+        print(f"bench {name}: {rec['rays_per_s']:.1f} rays/s (min {rec['rays_per_s_min']:.1f}, max "
+              f"{rec['rays_per_s_max']:.1f}), cycle {rec['cycle_s_median']:.4f} s = mapping "
+              f"{rec['map_s_median']:.4f} s + tracking {rec['track_s_median']:.4f} s over {rec['rays_per_cycle']} "
+              f"rays; prior {rec['tsdf_dims']} = {rec['tsdf_voxels'] / 1e6:.1f} M voxels; peak device memory "
+              f"{mem} GiB above the {rec['device_mem_held_on_entry_gb']} GiB held on entry; launches per cycle {json.dumps(rec['launches_per_cycle'])}; build {rec['build_s']:.1f} s, "
+              f"warm-up {rec['warmup_s']:.1f} s")
+        if not rec["losses_finite"]:
+            fail(f"bench {name}: a non-finite loss")
+        if rec["launches_per_cycle"]["halo_fold"] <= 0:
+            fail(f"bench {name}: the cycle launched no K1")
+        if mem is None:
+            fail(f"bench {name}: no peak device memory")
+    print(f"bench: est_mfu_vs_chip_fp32_peak {out['est_mfu_vs_chip_fp32_peak']:.3e} "
+          f"({out['est_model_flops_per_s'] / 1e12:.4f} TFLOP/s of {out['assumed_peak_flops'] / 1e12:.0f}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) where a mapping iteration's milliseconds go
+    t0 = time.perf_counter()
+    rows = drive("profile_mapping", profile_mapping.main,
+                 ["--json", os.path.join(work, "profile.json"), "--iters", str(PROFILE_ITERS)])["rows"]
+    print(f"profile_mapping: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+    for name, r in rows.items():
+        k1, k3 = r["launches_per_iter"]["halo_fold"], r["launches_per_iter"]["cell_stencil"]
+        print(f"profile {name}: {r['ms_per_iter']:.4f} ms/iter (reps {r['rep_ms']}), device "
+              f"{r['device_ms_per_iter']} ms/iter over {r['device_kernels_per_iter']} kernels/iter; K1 {k1}, "
+              f"K3 {k3} a iteration")
+        if not r["finite"]:
+            fail(f"profile {name}: non-finite output")
+        halo = name in PROFILE_HALO_ROWS
+        pallas = name.startswith("scatter_bwd_pallas_")
+        if (k1 > 0) != halo or (k3 > 0) != pallas:
+            fail(f"profile {name}: K1 {k1} and K3 {k3} a iteration (expected K1 {'> 0' if halo else '0'}, "
+                 f"K3 {'> 0' if pallas else '0'})")
+
+    # (c) dp scaling, a world of one
+    t0 = time.perf_counter()
+    scal = bench_scaling.main(["--devices", "1", "--pixels", SCALING_PIXELS,
+                               "--out", os.path.join(work, "scaling.json")])
+    for rec in scal["raw"]:
+        paths[f"scaling_{rec['base_pixels']}px"] = rec["launches"]
+        print(f"scaling n=1 {rec['base_pixels']} rays ({rec['backend']}, {rec['device']}): {rec['rays_per_s']:.1f} "
+              f"rays/s, {1e3 * rec['step_s']:.3f} ms a step, {rec['grad_bytes_per_step']} gradient bytes a step, "
+              f"launches {json.dumps(rec['launches'])}")
+        if not rec["losses_finite"] or rec["launches"]["halo_fold"] <= 0:
+            fail(f"scaling {rec['base_pixels']} rays: finite {rec['losses_finite']}, launches {rec['launches']}")
+    model = scal["comm_model"]
+    print(f"scaling comm model (a prediction, not a measurement; {model['device_kind']}, "
+          f"{model['assumed_link_bw_bidi_bytes_per_s'] / 1e9:.0f} GB/s bidirectional a GPU, from the measured "
+          f"{1e3 * model['measured_step_s_1dev']:.3f} ms one-card step): strong "
+          f"{json.dumps(model['strong'])}; weak {json.dumps(model['weak'])}; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_ablation(work: str) -> None:
+    """Phase 18 (on request): ``tools/ablate_tracking.py --variants
+    ABLATION_VARIANTS --end_idx ABLATION_END``, then ``tools/collect_ablation.py``
+    on its record; prints each variant's aligned ATE (no gate)."""
+    from attentive_dfprior_tpu_torch.tools import ablate_tracking, collect_ablation
+
+    os.chdir(REPO)
+    raw, merged = os.path.join(work, "ablate_tracking.json"), os.path.join(work, "ablation.json")
+    t0 = time.perf_counter()
+    ablate_tracking.main(["--variants", ABLATION_VARIANTS, "--end_idx", str(ABLATION_END), "--out", raw,
+                          "--out-root", work])
+    payload = collect_ablation.main([merged, raw])
+    for r in payload["ranked"]:
+        run = payload["runs"][r["variant"]]
+        print(f"ablation {r['variant']} ({json.dumps(r['overrides'])}): aligned ATE {run['ate_cm_aligned']} cm, "
+              f"unaligned {run['ate_cm_unaligned']} cm over {run['n_frames']} frames, {run['wall_s']} s (no gate)")
+    print(f"ablation: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13,15,16",
-                    help="comma-separated phases to run (6, 8, 9, 11 and 14 only on request)")
+    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13,15,16,17",
+                    help="comma-separated phases to run (6, 8, 9, 11, 14 and 18 only on request)")
     ap.add_argument("--async-equal-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.async_equal_child:
@@ -1819,6 +1885,12 @@ def main() -> None:
     if 16 in phases:
         phase_async_ranks(torch, paths, strict_entry)
         done(16)
+    if 17 in phases:
+        phase_harnesses(torch, drive, paths)
+        done(17)
+    if 18 in phases:
+        drive("ablation", phase_ablation, tempfile.mkdtemp(prefix="chip_smoke_ablation_"))
+        done(18)
     if 14 in phases:
         t0 = time.perf_counter()
         path, losses = drive("pretrain_full", phase_pretrain, torch, dev, 6000)
