@@ -18,7 +18,11 @@ difference that matters for parity with the reference's per-frame optimizer
 step, a missing gradient as all-zero, so every step counter advances.
 
 The update is branch-free on the device (no host sync per leaf) and in
-place under ``torch.no_grad()``: the JAX package donated these buffers.
+place under ``torch.no_grad()``: the JAX package donated these buffers. It
+makes no copy from the host (the bias-correction bases are constants made
+once per device, the learning rates floats or device tensors), so a CUDA
+graph can capture it (``utils/step_graph.py``); ``adam_reset`` zeroes a
+state in place, a fresh state for a new frame at the same addresses.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Any, List, NamedTuple, Optional
 
 import torch
 
+from attentive_dfprior_tpu_torch.utils.device import device_constant
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -42,6 +47,13 @@ def adam_init(params: Any) -> AdamState:
         m=tree_map(lambda p: torch.zeros_like(p, memory_format=torch.contiguous_format).detach(), params),
         v=tree_map(lambda p: torch.zeros_like(p, memory_format=torch.contiguous_format).detach(), params),
     )
+
+
+@torch.no_grad()
+def adam_reset(state: AdamState) -> None:
+    """Zero ``state`` in place: ``adam_init``'s values at the same addresses."""
+    for t in tree_leaves(state.step) + tree_leaves(state.m) + tree_leaves(state.v):
+        t.zero_()
 
 
 @torch.no_grad()
@@ -62,7 +74,8 @@ def adam_update(
         grads: matching tree (or flat list in leaf order) of gradients;
             ``None`` entries count as all-zero.
         state: AdamState from adam_init.
-        lr_tree: matching tree of float learning rates (or scalar tensors).
+        lr_tree: matching tree of float learning rates (or 0-d tensors on
+            the parameters' device).
         lazy: the per-leaf rule above; False steps every leaf.
     """
     ps: List[torch.Tensor] = tree_leaves(params)
@@ -79,7 +92,7 @@ def adam_update(
         m.copy_(torch.where(touched, b1 * m + (1 - b1) * g, m))
         v.copy_(torch.where(touched, b2 * v + (1 - b2) * (g * g), v))
         tf = s.to(torch.float32)
-        bc1 = torch.clamp(1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=tf.device), tf), min=1e-12)
-        bc2 = torch.clamp(1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=tf.device), tf), min=1e-12)
+        bc1 = torch.clamp(1.0 - torch.pow(device_constant(b1, torch.float32, tf.device), tf), min=1e-12)
+        bc2 = torch.clamp(1.0 - torch.pow(device_constant(b2, torch.float32, tf.device), tf), min=1e-12)
         step = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
         p.copy_(torch.where(touched, p - step, p))

@@ -3,6 +3,13 @@
 The port of the JAX package's ``ops/compositing.py`` (ref:
 src/common.py:206-251). In occupancy mode alpha = sigmoid(10 * occ);
 weights are alpha-composited transmittance products.
+
+The transmittance's cumulative product takes its gradient by
+``cumprod_positive``: PyTorch's own formula for an input without zeros
+(``1 - alpha + 1e-10`` has none), without the host check for zeros with
+which ``torch.cumprod``'s backward picks that formula. That check reads a
+device value on the host, which a CUDA graph cannot capture
+(``utils/step_graph.py``); the values are the same bit for bit.
 """
 
 from __future__ import annotations
@@ -10,6 +17,32 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+class _CumprodPositive(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis; backward ``reversed cumsum(out *
+    grad) / x``, the formula ``torch.cumprod``'s backward takes when ``x``
+    holds no zero (torch/csrc/autograd/FunctionsManual.cpp,
+    ``cumprod_backward``), without its host-side check."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] <= 1:
+            return grad
+        w = out * grad
+        return w.flip(-1).cumsum(-1).flip(-1).div(x)
+
+
+def cumprod_positive(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative product along the last axis of an input with no zeros."""
+    return _CumprodPositive.apply(x)
 
 
 def raw2outputs(
@@ -40,9 +73,8 @@ def raw2outputs(
         alpha = 1.0 - torch.exp(-torch.relu(raw[..., 3]) * dists)
 
     # exclusive transmittance: cumprod of (1 - alpha + 1e-10)
-    trans = torch.cumprod(
+    trans = cumprod_positive(
         torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1),
-        dim=-1,
     )[..., :-1]
     weights = alpha * trans
 

@@ -7,6 +7,13 @@ library under ``attentive_dfprior_tpu_torch/build/`` (listed in
 of the source, so an edited source is rebuilt and a stale library is never
 loaded. ``build_all`` starts one nvcc per source, all at once.
 
+Launch counts: a wrapper counts a launch where it launches its kernel
+(``check_launch``). A launch made while the current stream captures a CUDA
+graph does not run: it is counted in ``CudaKernel.captured`` under the
+capturing stream, and ``utils/step_graph.py`` adds a graph's captured
+launches to ``launches`` at every replay, so a count reads the same
+whether an iteration ran eagerly or as a replay.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc or a card.
 """
@@ -42,10 +49,21 @@ def nvcc_path() -> str:
     return path
 
 
+def capturing_stream() -> Optional[int]:
+    """The raw handle of the current CUDA stream while it captures a graph,
+    else None (always None without CUDA)."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return torch.cuda.current_stream().cuda_stream
+    return None
+
+
 class CudaKernel:
     """One hand-written kernel: its source, its loaded library and its
     launch count (``launches`` grows by one per launch, in the wrapper,
-    under a lock: the async modes launch from two threads)."""
+    under a lock: the async modes launch from two threads; ``captured``
+    holds the launches recorded into graphs, by capturing stream)."""
 
     def __init__(self, name: str, source: str, bind: Callable[[ctypes.CDLL], None]):
         self.name = name
@@ -53,10 +71,25 @@ class CudaKernel:
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self.launches = 0
+        self.captured: Dict[int, int] = {}
         self.count_lock = threading.Lock()
         self._lib_lock = threading.Lock()  # one build and load when two threads launch first
         self.build_log = ""
         self.build_s = 0.0
+
+    def count(self, n: int = 1, stream: Optional[int] = None) -> None:
+        """Add ``n`` launches: run ones, or with ``stream`` ones captured
+        into a graph on that stream."""
+        with self.count_lock:
+            if stream is None:
+                self.launches += n
+            else:
+                self.captured[stream] = self.captured.get(stream, 0) + n
+
+    def take_captured(self, stream: int) -> int:
+        """The launches captured on ``stream`` since the last take."""
+        with self.count_lock:
+            return self.captured.pop(stream, 0)
 
     def lib_path(self) -> str:
         with open(self.source, "rb") as f:
@@ -115,8 +148,8 @@ def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
 
 
 def check_launch(kernel: CudaKernel, rc: int) -> None:
-    """Raise if a launch returned a CUDA error; count it otherwise."""
+    """Raise if a launch returned a CUDA error; count it otherwise (as
+    captured while the stream captures a graph)."""
     if rc != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with cudaError {rc}")
-    with kernel.count_lock:
-        kernel.launches += 1
+    kernel.count(1, capturing_stream())

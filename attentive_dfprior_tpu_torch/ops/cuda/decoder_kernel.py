@@ -10,7 +10,9 @@ The kernel reads its weights as one float32 image (``pack_tc_weights``):
 each matrix transposed (row = output feature, K contiguous), K padded to
 whole k8 steps, K rows permuted to the kernel's register fragments, split
 into TF32 hi and lo parts, in wgmma's no-swizzle core-matrix layout.
-``TC_CACHE`` builds it once per decoder and parameter version.
+``TC_CACHE`` builds it once per decoder and parameter version (the leaves'
+``_version``, which a CUDA graph's replay that writes them also advances,
+``utils/step_graph.py``).
 """
 
 from __future__ import annotations
@@ -215,8 +217,9 @@ TC_CACHE_SIZE = 8
 class _TcCache:
     """Weight images by decoder (a decoder tree or a ``PackedMLP``): an
     entry holds the decoder's leaf tensors (compared with ``is``) and each
-    leaf's ``_version``, so an in-place update (the optimizer's ``copy_``)
-    or a replaced leaf (a checkpoint load) builds a new image.
+    leaf's ``_version``, so an in-place update (the optimizer's ``copy_``,
+    a graph replay that writes the scene) or a replaced leaf (a checkpoint
+    load) builds a new image.
 
     Thread-safe: ``get`` runs under one lock, the build included, so two
     threads asking for one decoder build one image. An image is built on

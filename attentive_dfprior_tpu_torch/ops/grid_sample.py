@@ -46,6 +46,7 @@ import torch
 
 from attentive_dfprior_tpu_torch.ops.cuda.halo_fold_kernel import cell_fold_halo, cell_fold_plain
 from attentive_dfprior_tpu_torch.ops.cuda.stencil_kernel import cell_stencil
+from attentive_dfprior_tpu_torch.utils.device import device_constant
 
 GRID_VJPS = ("halo", "bitfold", "cellstencil", "xla", "sorted", "pallas")
 # samplers whose high and color grids share one doubled-width scatter and fold
@@ -64,12 +65,12 @@ def _floor_cell(dims_xyz: Tuple[int, int, int], p_norm: torch.Tensor):
     """Border-clamped unnormalized index: floor corner i0 (N, 3) int64,
     upper corner i1, fractional part f (N, 3)."""
     nx, ny, nz = dims_xyz
-    dims = torch.tensor([nx, ny, nz], dtype=p_norm.dtype, device=p_norm.device)
+    dims = device_constant((float(nx), float(ny), float(nz)), p_norm.dtype, p_norm.device)
     idx = (p_norm + 1.0) * 0.5 * (dims - 1.0)
     # min/max (not clamp) so that a point exactly on the border splits the
     # gradient at the tie as the JAX reference's clip does
     idx = torch.minimum(torch.maximum(idx, torch.zeros_like(dims)), dims - 1.0)
-    top = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int64, device=p_norm.device)
+    top = device_constant((nx - 1, ny - 1, nz - 1), torch.int64, p_norm.device)
     i0 = torch.minimum(torch.floor(idx).to(torch.int64), top)
     i1 = torch.minimum(i0 + 1, top)
     f = idx - i0.to(idx.dtype)

@@ -4,7 +4,7 @@ Usage:
     python -m attentive_dfprior_tpu_torch.run configs/Synthetic/room_tracking.yaml \\
         [--end_idx N] [--output O] [--input_folder F] [--resume] [--seed S]
         [--device cuda|cuda:N|cpu] [--grid-vjp halo|bitfold|cellstencil|xla|sorted|pallas]
-        [--adam-nonlazy] [--multihost] [--init_only] [--set key.sub=value ...]
+        [--adam-nonlazy] [--eager] [--multihost] [--init_only] [--set key.sub=value ...]
 
     # ray-axis data parallelism over N cards of one host (strict, loose or free)
     torchrun --nproc_per_node N -m attentive_dfprior_tpu_torch.run <cfg> --set parallel.enable=true
@@ -17,7 +17,10 @@ Runs on the card unless ``--device cpu`` is given; in a process group,
 from the latest checkpoint under ``<output>/ckpts`` (either package's).
 ``--grid-vjp`` selects the feature grids' gradient variant and
 ``--adam-nonlazy`` steps every Adam leaf in every iteration: the JAX
-package's ``DFPRIOR_TRILINEAR_VJP`` and ``DFPRIOR_ADAM_LAZY=0``. ``--set``
+package's ``DFPRIOR_TRILINEAR_VJP`` and ``DFPRIOR_ADAM_LAZY=0``. On the card
+each mapping stage's and each tracked frame's iteration is captured once
+as a CUDA graph and replayed (``utils/step_graph.py``); ``--eager`` runs
+it in Python instead (a dp run is always eager). ``--set``
 overrides config entries after loading (values parsed as YAML scalars),
 e.g. ``--set mapping.vis_freq=5``; ``--set sync_method=loose`` (or
 ``free``) runs the mapper on a worker thread of its own
@@ -80,6 +83,8 @@ def main(argv: Optional[List[str]] = None):
                         help="grid-gradient variant of the feature-grid samplers")
     parser.add_argument("--adam-nonlazy", action="store_true",
                         help="step every Adam leaf each iteration (no per-leaf lazy rule)")
+    parser.add_argument("--eager", action="store_true",
+                        help="run each iteration in Python, not as a replayed CUDA graph")
     parser.add_argument("--multihost", action="store_true",
                         help="join the process group from the launcher's environment "
                         "(equivalent to parallel.multihost: True)")
@@ -116,7 +121,8 @@ def main(argv: Optional[List[str]] = None):
         else:
             print(f"multihost: process 0/1, backend none, device {device}", flush=True)
         return None
-    slam = SLAMSystem(cfg, args, device=args.device, grid_vjp=args.grid_vjp, adam_lazy=not args.adam_nonlazy)
+    slam = SLAMSystem(cfg, args, device=args.device, grid_vjp=args.grid_vjp, adam_lazy=not args.adam_nonlazy,
+                      step_mode="eager" if args.eager else None)
     start = 0
     if args.resume:
         from attentive_dfprior_tpu_torch.utils.logger import latest_checkpoint

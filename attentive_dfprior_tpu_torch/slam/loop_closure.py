@@ -141,10 +141,12 @@ class LoopCloser:
         generator: Optional[torch.Generator] = None,
         pixel_idx: Optional[torch.Tensor] = None,
         shards=None,
+        graphs=None,
     ):
         """One frozen-map re-localization from ``init_c2w`` on ``shards``
-        (default: the tracker's dp group); returns (c2w (4, 4) float32,
-        per-iteration losses)."""
+        (default: the tracker's dp group), its iteration replayed from
+        ``graphs`` (the calling agent's ``StepGraphs``; default: the
+        tracker's); returns (c2w (4, 4) float32, per-iteration losses)."""
         t = self.tracker
         dev = t.device
         cam_tensor = torch.as_tensor(pose_tensor_from_matrix(init_c2w), device=dev)
@@ -157,7 +159,7 @@ class LoopCloser:
             t.handle_dynamic, t.use_color, t.w_color_loss,
             float(self.lr) if self.lr is not None else t.cam_lr,
             t.seperate_LR, t.lr_final_factor, generator, pixel_idx, t.grid_vjp, t.adam_lazy,
-            t.shards if shards is None else shards,
+            t.shards if shards is None else shards, graphs=t.graphs if graphs is None else graphs,
         )
         with torch.no_grad():
             c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()
@@ -197,13 +199,15 @@ class LoopCloser:
         pixel_idx: Optional[Dict[int, torch.Tensor]] = None,
         kf_lock=None,
         shards=None,
+        graphs=None,
     ) -> bool:
         """Revisit-gated keyframe relaxation (mechanism 1); returns whether
         it ran. ``pixel_idx``: optional {keyframe slot: (iters, pixels)}.
         ``kf_lock``: held around the keyframe poses' read and write (the
         async modes' main thread reads them for its side outputs).
         ``shards``: the dp group of the re-localizations (default: the
-        tracker's)."""
+        tracker's); ``graphs``: the ``StepGraphs`` they replay from (the
+        agent whose thread runs them; default: the tracker's)."""
         if not self.enable or idx - self._last_relax < self.every:
             return False
         hit = self.detect_revisit(idx, depth_np, c2w)
@@ -224,7 +228,7 @@ class LoopCloser:
                 continue  # ground truth by construction
             ref, _ = self._relocalize(
                 params, self.keyframes.color[slot], self.keyframes.depth[slot], old_poses[slot], n_it,
-                generator, None if pixel_idx is None else pixel_idx[slot], shards,
+                generator, None if pixel_idx is None else pixel_idx[slot], shards, graphs,
             )
             new_poses[slot] = clamp_pose_update(old_poses[slot], ref, self.max_dt, max_rot)
             if not np.allclose(new_poses[slot], old_poses[slot]):

@@ -2,11 +2,17 @@
 
 The port of the JAX package's ``slam/mapper.py`` (ref: src/Mapper.py:15-605).
 Each mapped frame gets a fresh per-leaf Adam state and runs the staged
-low -> high -> color schedule; a Python loop over iterations replaces the
-JAX ``lax.scan``. Per iteration: draw pixels in every window frame, build
-rays, render, take the depth (+ color) L1 loss, differentiate every scene
-leaf, mask the grid gradients to the current frustum, and take one lazy
-Adam step in place.
+low -> high -> color schedule. Per iteration: draw pixels in every window
+frame, build rays, render, take the depth (+ color) L1 loss, differentiate
+every scene leaf, mask the grid gradients to the current frustum, and take
+one lazy Adam step in place.
+
+The JAX package compiles each stage into one ``lax.scan`` (ref:
+slam/mapper.py:109-123, 307). Here the iteration is one ``StepGraph``
+(``utils/step_graph.py``): on the card it is captured once as a CUDA graph
+and replayed for the stage's iterations, with the frames, the frustum
+masks, BA's window poses, the Adam state, the learning rates and the
+regularizer's weight in static buffers; eagerly it runs the same step.
 
 Every scene leaf requires grad in every stage, as the JAX mapper
 differentiates every leaf and routes the stage through the learning rates:
@@ -30,13 +36,18 @@ import torch
 
 from attentive_dfprior_tpu_torch.camera import Camera
 from attentive_dfprior_tpu_torch.models.scene import SceneConfig
-from attentive_dfprior_tpu_torch.ops.adam import adam_init, adam_update
+from attentive_dfprior_tpu_torch.ops.adam import AdamState, adam_update
 from attentive_dfprior_tpu_torch.ops.pose import pose_matrix_from_tensor, pose_tensor_from_matrix
 from attentive_dfprior_tpu_torch.ops.rays import get_samples, ray_bound_intersection
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, render_rays
+from attentive_dfprior_tpu_torch.utils.step_graph import StaticScalars, StepGraphs, resolve_step_mode, tensor_key
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
 
 GRID_KEYS = ("grid_low", "grid_high", "grid_color")
+# a mapping step's device scalars: the learning rates of build_lr_tree's
+# groups, BA's pose rate, then the regularizer's weight
+LR_SLOT = {"high": 0, "color": 1, "mlp": 2, "grid_low": 3, "grid_high": 4, "grid_color": 5, "low": 6}
+POSE_SLOT, W_REG_SLOT, N_SLOTS = 7, 8, 9
 
 
 class StageLRs(NamedTuple):
@@ -63,6 +74,20 @@ def build_lr_tree(params: Any, lrs: StageLRs, fix_high: bool, fix_color: bool) -
         "color": 0.0 if fix_color else lrs.decoders,
     }
     return {k: tree_map(lambda _, lr=top[k]: lr, v) for k, v in params.items()}
+
+
+def lr_slot_values(lrs: StageLRs, fix_high: bool, fix_color: bool, ba_cam_lr: float) -> List[float]:
+    """``build_lr_tree``'s rates by ``LR_SLOT``, then BA's pose rate."""
+    return [0.0 if fix_high else lrs.decoders, 0.0 if fix_color else lrs.decoders, lrs.mlp, lrs.low, lrs.high,
+            lrs.color, 0.0, ba_cam_lr]
+
+
+def lr_tree_of(params: Any, values: torch.Tensor, ba: bool) -> Any:
+    """``build_lr_tree``'s per-leaf rates as 0-d views of the device vector
+    ``values`` (``LR_SLOT``; with ``ba`` the pose's at ``POSE_SLOT``)."""
+    scene = params["scene"] if ba else params
+    tree = {k: tree_map(lambda _, i=LR_SLOT[k]: values[i], v) for k, v in scene.items()}
+    return {"scene": tree, "pose": values[POSE_SLOT]} if ba else tree
 
 
 def mapping_loss_fn(
@@ -211,6 +236,7 @@ def mapping_stage(
     grid_vjp: str = "halo",
     adam_lazy: bool = True,
     shards=None,
+    graphs: Optional[StepGraphs] = None,
 ) -> torch.Tensor:
     """Run one optimization stage of ``n_iters`` iterations in place on
     ``params`` and ``adam_state`` (ref: slam/mapper.py:125-310).
@@ -222,7 +248,8 @@ def mapping_stage(
         w_reg_flags: per-iteration weight of the attention regularizer.
         generator: draws the pixels when ``pixel_idx`` is None.
         pixel_idx: (n_iters, F, pixs_per_image * accum) flat pixel indices
-            (replayed draws; the tests feed the JAX package's).
+            (replayed draws; the tests feed the JAX package's), copied into
+            a static buffer before each iteration.
         accum: k-fold larger ray batch per Adam step, loss scaled 1/k.
         ba: optimize the window poses too; ``pose_mask`` (F,) zeroes the
             anchor's pose gradient; ``ba_cam_lr`` is the poses' rate.
@@ -235,37 +262,62 @@ def mapping_stage(
             max depth) and sum loss and gradients over its group, one
             all-reduce per iteration, before the masks and Adam; None runs
             the whole batch here.
+        graphs: the agent's ``StepGraphs``: the stage's program (one
+            iteration, replayed as a CUDA graph in ``graph`` mode) is cached
+            there by the data pointers of every tensor above, so a caller
+            that keeps them at fixed addresses replays one capture; None
+            runs the step eagerly.
 
     Returns:
         (n_iters,) per-iteration losses (the whole batch's under ``shards``).
     """
+    dev = frames_depth.device
+    if graphs is None:
+        graphs = StepGraphs("eager", dev)
     fix_high, fix_color = fix_flags
-    if ba:
-        lr_tree = {"scene": build_lr_tree(params["scene"], lrs, fix_high, fix_color), "pose": ba_cam_lr}
-    else:
-        lr_tree = build_lr_tree(params, lrs, fix_high, fix_color)
     H, W = cam.H, cam.W
     n_draw = pixs_per_image * accum
-    losses = []
+    replayed = pixel_idx is not None
+    key = ("map", stage, H, W, cam.fx, cam.fy, cam.cx, cam.cy, n_draw, accum, ba, rcfg, float(w_color_loss),
+           grid_vjp, adam_lazy, replayed, None if replayed else generator, id(shards),
+           tensor_key(params, adam_state, frames_color, frames_depth, frames_c2w, frustum_masks, tsdf_volume,
+                      tsdf_bnds, bound, pose_mask))
+
+    def make():
+        scalars = StaticScalars(N_SLOTS, dev)
+        lr_tree = lr_tree_of(params, scalars.values, ba)
+        pix = torch.zeros(tuple(frames_depth.shape[:-2]) + (n_draw,), dtype=torch.int64, device=dev) if replayed else None
+        loss_out = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def step() -> None:
+            c2ws = pose_matrix_from_tensor(params["pose"]) if ba else frames_c2w  # (F, 3, 4) under BA
+            ro, rd, gd, gc = get_samples(
+                0, H, 0, W, n_draw, cam.fx, cam.fy, cam.cx, cam.cy, c2ws,
+                frames_depth, frames_color, generator, pix,
+            )
+            ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+            gd, gc = gd.reshape(-1), gc.reshape(-1, 3)
+            # in-bound ray mask (ref: Mapper.py:438-449), as loss weights
+            inside = ray_bound_intersection(ro.detach(), rd.detach(), bound) >= gd
+            loss_out.copy_(mapping_step(
+                params, adam_state, ro, rd, gd, gc, inside, tsdf_volume, tsdf_bnds, bound, lr_tree, stage, rcfg,
+                w_color_loss, scalars.values[W_REG_SLOT], frustum_masks, accum, ba, pose_mask, grid_vjp,
+                adam_lazy, shards,
+            ))
+
+        graph = graphs.step_graph(step, () if replayed else (generator,), tree_leaves(params), shards)
+        return scalars, pix, loss_out, graph
+
+    scalars, pix, loss_out, graph = graphs.program(key, make)
+    scalars.set_all(lr_slot_values(lrs, fix_high, fix_color, ba_cam_lr))
+    losses = torch.zeros((n_iters,), dtype=torch.float32, device=dev)
     for it in range(n_iters):
-        pix = None if pixel_idx is None else pixel_idx[it]
-        if ba:
-            c2ws = pose_matrix_from_tensor(params["pose"])  # (F, 3, 4)
-        else:
-            c2ws = frames_c2w
-        ro, rd, gd, gc = get_samples(
-            0, H, 0, W, n_draw, cam.fx, cam.fy, cam.cx, cam.cy, c2ws,
-            frames_depth, frames_color, generator, pix,
-        )
-        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
-        gd, gc = gd.reshape(-1), gc.reshape(-1, 3)
-        # in-bound ray mask (ref: Mapper.py:438-449), as loss weights
-        inside = ray_bound_intersection(ro.detach(), rd.detach(), bound) >= gd
-        losses.append(mapping_step(
-            params, adam_state, ro, rd, gd, gc, inside, tsdf_volume, tsdf_bnds, bound, lr_tree, stage, rcfg,
-            w_color_loss, float(w_reg_flags[it]), frustum_masks, accum, ba, pose_mask, grid_vjp, adam_lazy, shards,
-        ))
-    return torch.stack(losses) if losses else torch.zeros(0)
+        if replayed:
+            pix.copy_(pixel_idx[it])
+        scalars.set(W_REG_SLOT, w_reg_flags[it])
+        graph()
+        losses[it] = loss_out
+    return losses
 
 
 def _mask_grads(params, grads, ba, pose_mask, frustum_masks):
@@ -356,7 +408,14 @@ def get_frustum_mask(
 
 class Mapper:
     """Host-side mapping agent driving the stage loops; ``grid_vjp``,
-    ``adam_lazy`` and ``shards`` (the dp group) as in ``mapping_stage``."""
+    ``adam_lazy`` and ``shards`` (the dp group) as in ``mapping_stage``.
+    ``step_mode`` (``utils/step_graph.py:resolve_step_mode``): ``graph``
+    replays each stage's iteration as a CUDA graph, ``eager`` runs it; by
+    default ``graph`` on a CUDA device without ``shards``. ``concurrent``:
+    another agent runs on another thread (the async modes). ``graphs``
+    holds this agent's programs, static buffers and memory pool; loop
+    closure's relaxation, which runs on the mapper's thread, replays its
+    tracking graphs there too."""
 
     def __init__(
         self,
@@ -370,9 +429,13 @@ class Mapper:
         grid_vjp: str = "halo",
         adam_lazy: bool = True,
         shards=None,
+        step_mode: Optional[str] = None,
+        concurrent: bool = False,
     ):
         m = cfg["mapping"]
         self.shards = shards
+        self.step_mode = resolve_step_mode(step_mode, device, dp=shards is not None)
+        self.graphs = StepGraphs(self.step_mode, device, concurrent=concurrent)
         self.grid_vjp = grid_vjp
         self.adam_lazy = adam_lazy
         self.cfg = cfg
@@ -456,7 +519,9 @@ class Mapper:
         cur_color_np: Optional[np.ndarray] = None,
     ) -> Tuple[Any, Dict[str, float], Optional[np.ndarray], Dict[str, torch.Tensor]]:
         """One mapped frame: fresh Adam state and the staged loops
-        (ref: src/Mapper.py:262-484), in place on ``params``.
+        (ref: src/Mapper.py:262-484), in place on ``params``. The window,
+        the frustum masks, BA's poses and the Adam state are copied into
+        (or zeroed in) this agent's static buffers first.
 
         Args:
             frames_color/depth/c2w: the optimization window (selected
@@ -501,19 +566,31 @@ class Mapper:
 
         for t in tree_leaves(params):
             t.requires_grad_(True)
-        frames_c2w_t = torch.as_tensor(np.asarray(frames_c2w), dtype=torch.float32, device=self.device)
+        # the window in static buffers (one set per window size F), so the
+        # stage programs of every frame read the same addresses
+        g = self.graphs
+        frames_color = g.static(("color", F), frames_color)
+        frames_depth = g.static(("depth", F), frames_depth)
+        frames_c2w_t = g.static(("c2w", F), torch.as_tensor(np.asarray(frames_c2w), dtype=torch.float32,
+                                                            device=self.device))
+        if frustum_masks is not None:
+            frustum_masks = {k: g.static(("frustum", k), v) for k, v in frustum_masks.items()}
         ba_on = self.ba and not color_refine and F >= 3
+        scene_state = g.adam("scene", params)  # zeroed: a fresh state for this frame
         if ba_on:
-            pose_t0 = torch.as_tensor(
+            pose_t0 = g.static(("pose", F), torch.as_tensor(
                 np.stack([pose_tensor_from_matrix(np.asarray(frames_c2w[i])) for i in range(F)]),
                 dtype=torch.float32, device=self.device,
-            ).requires_grad_(True)
-            pose_mask = torch.ones((F,), dtype=torch.float32, device=self.device)
+            ), requires_grad=True)
+            pose_mask = g.static(("pose_mask", F), torch.ones((F,), dtype=torch.float32, device=self.device))
             pose_mask[int(ba_anchor)] = 0.0  # gauge anchor
             opt = {"scene": params, "pose": pose_t0}
+            pose_state = g.adam(("pose", F), pose_t0)
+            adam_state = AdamState(*({"scene": a, "pose": b} for a, b in zip(scene_state, pose_state)))
         else:
             pose_mask = None
             opt = params
+            adam_state = scene_state
 
         vis_this_frame = (
             visualizer is not None
@@ -521,7 +598,6 @@ class Mapper:
             and cur_color_np is not None
             and idx % visualizer.freq == 0
         )
-        adam_state = adam_init(opt)
         losses: Dict[str, float] = {}
         stage_losses: Dict[str, torch.Tensor] = {}
         for stage, s, e in self._stage_schedule(num_joint_iters, low_ratio, high_ratio):
@@ -548,7 +624,7 @@ class Mapper:
                     pixel_idx=None if pixel_idx is None else pixel_idx[stage][a:b],
                     accum=self.accum, ba=ba_on, pose_mask=pose_mask,
                     ba_cam_lr=self.ba_cam_lr, grid_vjp=self.grid_vjp,
-                    adam_lazy=self.adam_lazy, shards=self.shards,
+                    adam_lazy=self.adam_lazy, shards=self.shards, graphs=self.graphs,
                 ))
             stage_losses[stage] = torch.cat(chunks)
         for stage, ls in stage_losses.items():

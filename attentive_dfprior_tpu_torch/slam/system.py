@@ -82,6 +82,7 @@ from attentive_dfprior_tpu_torch.utils.device import resolve_device
 from attentive_dfprior_tpu_torch.utils.logger import Logger, load_checkpoint
 from attentive_dfprior_tpu_torch.utils.mesher import Mesher
 from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer
+from attentive_dfprior_tpu_torch.utils.step_graph import resolve_step_mode
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 from attentive_dfprior_tpu_torch.utils.visualizer import Visualizer
 
@@ -165,6 +166,13 @@ class SLAMSystem:
             ``DFPRIOR_TRILINEAR_VJP``).
         adam_lazy: Adam's per-leaf lazy rule; False is the JAX package's
             ``DFPRIOR_ADAM_LAZY=0``.
+        step_mode: ``graph`` replays each mapping stage's and each tracked
+            frame's iteration as a CUDA graph (``utils/step_graph.py``, the
+            JAX package's compiled ``lax.scan`` loops), ``eager`` runs it
+            in Python; None: ``graph`` on a CUDA device without ray-axis dp
+            (its gloo collectives cannot be captured), else ``eager``.
+            ``graph`` on the CPU or under dp raises. ``self.step_mode``
+            says which ran.
 
     Pixel draws: the mapper (and loop closure's relaxation, which runs
     after a mapped frame) draws from ``self.generator``. In strict mode the
@@ -184,6 +192,7 @@ class SLAMSystem:
         device=None,
         grid_vjp: str = "halo",
         adam_lazy: bool = True,
+        step_mode: Optional[str] = None,
     ):
         grid_sampler(grid_vjp)  # an unknown name raises here, not mid-run
         self.device = resolve_device(device)
@@ -264,13 +273,18 @@ class SLAMSystem:
             occupancy=bool(cfg.get("occupancy", True)),
         )
         self.renderer = Renderer(self.rcfg, self.scene_cfg.bound, self.tsdf_bnds, self.cam, self.device)
+        # graphed or eager steps (utils/step_graph.py): a dp run is eager
+        self.step_mode = resolve_step_mode(step_mode, self.device, dp=world is not None)
+        concurrent = self.sync_method != "strict"
         self.mapper = Mapper(
             cfg, self.cam, self.scene_cfg, self.rcfg, self.tsdf_volume, self.tsdf_bnds, self.device,
             grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards if self.groups is None else self.groups.map,
+            step_mode=self.step_mode, concurrent=concurrent,
         )
         self.tracker = Tracker(
             cfg, self.cam, self.rcfg, self.scene_cfg.bound, self.tsdf_volume_track, self.tsdf_bnds, self.device,
             grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards if self.groups is None else self.groups.track,
+            step_mode=self.step_mode, concurrent=concurrent,
         )
         self.mesher = Mesher(cfg, self.cam, self.scene_cfg.bound, self.tsdf_bnds, self.device)
         self.logger = Logger(os.path.join(self.output, "ckpts"), self.verbose)
@@ -407,6 +421,9 @@ class SLAMSystem:
         keyframes re-read from the dataset, selected keyframes); returns the
         next frame to process. (The reference has no resume, SURVEY §5.)"""
         self.params, meta = load_checkpoint(ckpt_path, self.params)
+        # the graphs read the old scene's buffers: capture again on the new ones
+        self.mapper.graphs.clear()
+        self.tracker.graphs.clear()
         idx = meta["idx"]
         self.estimate_c2w_list[: len(meta["estimate_c2w_list"])] = meta["estimate_c2w_list"]
         self.gt_c2w_list[: len(meta["gt_c2w_list"])] = meta["gt_c2w_list"]
@@ -513,7 +530,7 @@ class SLAMSystem:
             with self.profiler.phase("loop"):
                 self.loop_closer.maybe_relax(
                     idx, np.asarray(depth), c2w, self.estimate_c2w_list, self.params, self.generator,
-                    kf_lock=self._kf_lock, shards=self.mapper.shards,
+                    kf_lock=self._kf_lock, shards=self.mapper.shards, graphs=self.mapper.graphs,
                 )
         if self.verbose:
             print(f"Mapping frame {idx}  losses={losses}")

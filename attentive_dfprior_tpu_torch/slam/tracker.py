@@ -1,11 +1,18 @@
 """Tracker: per-frame camera pose optimization by differentiable rendering.
 
 The port of the JAX package's ``slam/tracker.py`` (ref:
-src/Tracker.py:20-274). A Python loop over iterations replaces the JAX
-``lax.scan``: draw pixels, render at the current pose, take the robust
-depth (+ color) loss, differentiate the 7-DoF camera tensor only, take an
-Adam step, and keep the best candidate. The scene is read detached, so no
-grid gradient (and no K1 launch) is ever computed while tracking.
+src/Tracker.py:20-274). Per iteration: draw pixels, render at the current
+pose, take the robust depth (+ color) loss, differentiate the 7-DoF camera
+tensor only, take an Adam step, and keep the best candidate. The scene is
+read detached, so no grid gradient (and no K1 launch) is ever computed
+while tracking.
+
+The JAX package compiles a tracked frame into one ``lax.scan`` (ref:
+slam/tracker.py:120, 239). Here the iteration is one ``StepGraph``
+(``utils/step_graph.py``): on the card it is captured once and replayed
+for every iteration of every frame, with the camera tensor, its Adam
+state, the best loss and candidate, the frame and the learning rates in
+static buffers; eagerly it runs the same step.
 
 Under ray-axis data parallelism (``parallel/sharding.py``) every rank
 draws the whole batch and renders its block. Two quantities are global, or
@@ -22,7 +29,7 @@ import numpy as np
 import torch
 
 from attentive_dfprior_tpu_torch.camera import Camera
-from attentive_dfprior_tpu_torch.ops.adam import adam_init, adam_update
+from attentive_dfprior_tpu_torch.ops.adam import adam_init, adam_reset, adam_update
 from attentive_dfprior_tpu_torch.ops.pose import (
     homogenize,
     pose_matrix_from_tensor,
@@ -30,7 +37,7 @@ from attentive_dfprior_tpu_torch.ops.pose import (
 )
 from attentive_dfprior_tpu_torch.ops.rays import get_samples, ray_bound_intersection
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, render_rays
-from attentive_dfprior_tpu_torch.utils.tree import tree_map
+from attentive_dfprior_tpu_torch.utils.step_graph import StaticScalars, StepGraphs, resolve_step_mode, tensor_key
 
 
 def masked_lower_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -133,6 +140,7 @@ def track_frame(
     grid_vjp: str = "halo",
     adam_lazy: bool = True,
     shards=None,
+    graphs: Optional[StepGraphs] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Optimize the camera tensor for one frame; return the best candidate.
 
@@ -144,32 +152,87 @@ def track_frame(
     over the second half.
 
     Args:
-        pixel_idx: optional (n_iters, batch_size) replayed pixel draws.
+        pixel_idx: optional (n_iters, batch_size) replayed pixel draws,
+            copied into a static buffer before each iteration.
         grid_vjp: the feature grids' gradient variant (the scene is read
             detached, so only its point gradient runs); adam_lazy: Adam's
             per-leaf lazy rule.
         shards: the dp group (``tracking_loss_fn``); loss and gradient are
             summed over it in one all-reduce, so every rank keeps the same
             best candidate.
+        graphs: the agent's ``StepGraphs``: the frame's program (one
+            iteration, replayed as a CUDA graph in ``graph`` mode) is cached
+            there by the scene's buffers (``StepGraphs.scene``), the prior's
+            and the options; None runs the step eagerly.
 
     Returns:
         best tensor (7,), losses (n_iters,), final tensor (7,), pre-step
         tensors (n_iters, 7).
     """
-    params = tree_map(lambda t: t.detach(), params)
     init = init_camera_tensor.detach().to(torch.float32)
-    if seperate_LR:
-        cam_params = {"quad": init[:4].clone(), "T": init[4:].clone()}
-        lr_tree = {"quad": cam_lr * 0.2, "T": cam_lr}
-    else:
-        cam_params = {"cam": init.clone()}
-        lr_tree = {"cam": cam_lr}
-
-    def assemble(p):
-        return torch.cat([p["quad"], p["T"]]) if seperate_LR else p["cam"]
-
-    astate = adam_init(cam_params)
     dev = init.device
+    if graphs is None:
+        graphs = StepGraphs("eager", dev)
+    scene = graphs.scene(params)
+    names = ("quad", "T") if seperate_LR else ("cam",)
+    replayed = pixel_idx is not None
+    key = ("track", names, tuple(color_im.shape), cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy, rcfg, batch_size,
+           ignore_edge_W, ignore_edge_H, handle_dynamic, use_color, float(w_color_loss), grid_vjp, adam_lazy,
+           replayed, None if replayed else generator, id(shards),
+           tensor_key(scene, tsdf_volume, tsdf_bnds, bound))
+
+    def make():
+        sizes = {"quad": 4, "T": 3, "cam": 7}
+        cams = {n: torch.zeros((sizes[n],), dtype=torch.float32, device=dev).requires_grad_(True) for n in names}
+        adam = adam_init(cams)
+        scalars = StaticScalars(len(names), dev)
+        lr_tree = {n: scalars.values[i] for i, n in enumerate(names)}
+        color = torch.zeros(color_im.shape, dtype=torch.float32, device=dev)
+        depth = torch.zeros(depth_im.shape, dtype=torch.float32, device=dev)
+        pix = torch.zeros((batch_size,), dtype=torch.int64, device=dev) if replayed else None
+        best_loss = torch.zeros((), dtype=torch.float32, device=dev)
+        best = torch.zeros((7,), dtype=torch.float32, device=dev)
+        out = torch.zeros((8,), dtype=torch.float32, device=dev)  # the loss, then the pre-step tensor
+
+        def assemble():
+            return torch.cat([cams["quad"], cams["T"]]) if seperate_LR else cams["cam"]
+
+        def step() -> None:
+            leaves = list(cams.values())
+            loss = tracking_loss_fn(
+                assemble(), scene, color, depth, tsdf_volume, tsdf_bnds, bound, cam, rcfg, batch_size,
+                ignore_edge_W, ignore_edge_H, handle_dynamic, use_color, w_color_loss, generator, pix,
+                grid_vjp, shards,
+            )
+            grads = list(torch.autograd.grad(loss, leaves))
+            if shards is not None:
+                reduced = shards.all_reduce([loss.detach().reshape(1)] + grads)
+                loss, grads = reduced[0][0], reduced[1:]
+            with torch.no_grad():
+                out[1:].copy_(assemble())
+                adam_update(cams, dict(zip(cams, grads)), adam, lr_tree, lazy=adam_lazy)
+                value = loss.detach()
+                better = value < best_loss
+                best_loss.copy_(torch.where(better, value, best_loss))
+                best.copy_(torch.where(better, assemble(), best))
+                out[0].copy_(value)
+
+        graph = graphs.step_graph(step, () if replayed else (generator,), list(cams.values()), shards)
+        return cams, adam, scalars, color, depth, pix, best_loss, best, out, assemble, graph
+
+    cams, adam, scalars, color, depth, pix, best_loss, best, out, assemble, graph = graphs.program(key, make)
+    with torch.no_grad():
+        if seperate_LR:
+            cams["quad"].copy_(init[:4])
+            cams["T"].copy_(init[4:])
+        else:
+            cams["cam"].copy_(init)
+        adam_reset(adam)
+        best_loss.fill_(float("inf"))
+        best.copy_(init)
+        color.copy_(color_im)
+        depth.copy_(depth_im)
+    base = [cam_lr * 0.2, cam_lr] if seperate_LR else [cam_lr]
     if lr_final_factor < 1.0 and n_iters > 1:
         i = torch.arange(n_iters, dtype=torch.float32)
         half = n_iters / 2.0
@@ -177,42 +240,27 @@ def track_frame(
         lr_scales = torch.pow(torch.tensor(lr_final_factor, dtype=torch.float32), t).tolist()
     else:
         lr_scales = [1.0] * n_iters
-
-    best_loss = torch.tensor(float("inf"), device=dev)
-    best_tensor = init.clone()
-    losses, iter_tensors = [], []
+    record = torch.zeros((n_iters, 8), dtype=torch.float32, device=dev)
     for it in range(n_iters):
-        leaves = list(cam_params.values())
-        for leaf in leaves:
-            leaf.requires_grad_(True)
-        loss = tracking_loss_fn(
-            assemble(cam_params), params, color_im, depth_im, tsdf_volume,
-            tsdf_bnds, bound, cam, rcfg, batch_size, ignore_edge_W,
-            ignore_edge_H, handle_dynamic, use_color, w_color_loss, generator,
-            None if pixel_idx is None else pixel_idx[it], grid_vjp, shards,
-        )
-        grads = list(torch.autograd.grad(loss, leaves))
-        if shards is not None:
-            reduced = shards.all_reduce([loss.detach().reshape(1)] + grads)
-            loss, grads = reduced[0][0], reduced[1:]
-        grads = dict(zip(cam_params, grads))
-        with torch.no_grad():
-            pre = assemble(cam_params).clone()
-            adam_update(
-                cam_params, grads, astate, {k: lr * lr_scales[it] for k, lr in lr_tree.items()}, lazy=adam_lazy
-            )
-            better = loss.detach() < best_loss
-            best_loss = torch.where(better, loss.detach(), best_loss)
-            best_tensor = torch.where(better, assemble(cam_params), best_tensor)
-        losses.append(loss.detach())
-        iter_tensors.append(pre)
-    final = assemble(cam_params).detach()
-    return best_tensor, torch.stack(losses), final, torch.stack(iter_tensors)
+        if replayed:
+            pix.copy_(pixel_idx[it])
+        scalars.set_all([lr * lr_scales[it] for lr in base])
+        graph()
+        record[it] = out
+    with torch.no_grad():
+        final = assemble().clone()
+    return best.clone(), record[:, 0], final, record[:, 1:]
 
 
 class Tracker:
     """Host-side tracking agent (ref: src/Tracker.py:150-274); ``grid_vjp``,
-    ``adam_lazy`` and ``shards`` (the dp group) as in ``track_frame``."""
+    ``adam_lazy`` and ``shards`` (the dp group) as in ``track_frame``.
+    ``step_mode``: ``graph`` replays a frame's iteration as a CUDA graph,
+    ``eager`` runs it (by default ``graph`` on a CUDA device without
+    ``shards``). ``concurrent``: the async modes, where the tracker reads
+    published snapshots: its graphs read a static scene of its own that
+    each new snapshot is copied into (``StepGraphs.scene``), and the
+    final refine replays them too."""
 
     def __init__(
         self,
@@ -226,9 +274,13 @@ class Tracker:
         grid_vjp: str = "halo",
         adam_lazy: bool = True,
         shards=None,
+        step_mode: Optional[str] = None,
+        concurrent: bool = False,
     ):
         t = cfg["tracking"]
         self.shards = shards
+        self.step_mode = resolve_step_mode(step_mode, device, dp=shards is not None)
+        self.graphs = StepGraphs(self.step_mode, device, concurrent=concurrent, copy_scene=concurrent)
         self.grid_vjp = grid_vjp
         self.adam_lazy = adam_lazy
         self.cam = cam
@@ -292,6 +344,7 @@ class Tracker:
             self.ignore_edge_H, self.handle_dynamic, self.use_color,
             self.w_color_loss, self.cam_lr, self.seperate_LR,
             self.lr_final_factor, generator, pixel_idx, self.grid_vjp, self.adam_lazy, self.shards,
+            graphs=self.graphs,
         )
         if visualizer is not None and idx % visualizer.freq == 0:
             for it in range(0, self.num_cam_iters, visualizer.inside_freq):

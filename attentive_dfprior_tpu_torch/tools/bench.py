@@ -21,14 +21,27 @@ frame (25 / 12 / 23 iterations of the low / high / colour stage over the
 window) and 5 tracked frames, on the production ``mapping_stage`` and
 ``track_frame``; the pixel draws come from one ``torch.Generator``.
 
-The cycle is timed on the host's clock with ``torch.cuda.synchronize()``
-at both ends: one warm-up cycle, then ``--reps`` timed cycles (median, min
-and max). Peak device memory (``device_peak_mem_gb``) is the workload's
-own: ``torch.cuda.max_memory_allocated`` over the set-up and the cycles,
-less what the process held on entry (``device_mem_held_on_entry_gb``),
-so it reads the same alone and inside a longer process. The record also splits each cycle into its
-mapping and tracking seconds and counts the hand-written kernels' launches
-per cycle (K1 under ``halo``, K3 under ``pallas``).
+The cycle runs in each step mode of ``default_modes`` (``utils/step_graph.py``):
+``graph`` replays each stage's and each tracked frame's iteration as a CUDA
+graph, ``eager`` runs it in Python; both on the card, ``eager`` alone on
+the CPU. Each mode maps its own copy of one initial scene with its own
+copy of one draw stream. The cycle is timed on the host's clock with
+``torch.cuda.synchronize()`` at both ends: one warm-up cycle per mode (the
+graphs' warm-up and capture), then ``--reps`` timed cycles per mode, the
+modes in turns (graph, eager, eager, graph, ...), each mode's median, min
+and max. Peak device memory (``device_peak_mem_gb``) is each mode's own,
+the peak it would reach alone: the workload's inputs, plus the most the
+mode held at once over its set-up, warm-up and cycles, each read from
+``torch.cuda.max_memory_allocated`` reset before it and less what was
+allocated when it began (so neither what the process held on entry,
+``device_mem_held_on_entry_gb``, nor the other mode's scene counts); a
+graph's memory pool is reserved, not allocated, while it replays, so each
+mode's record also gives the bytes its warm-up added to the graphs' pools
+(``graph_pool_gb``, 0 for eager). The record also splits each cycle
+into its mapping and tracking seconds and counts the hand-written kernels'
+launches per cycle (K1 under ``halo``, K3 under ``pallas``; a replay counts
+the launches its graph holds). The JSON line's headline is the first mode's
+(``graphed`` says which), the other mode's record under its name.
 
 ``est_mfu_vs_chip_fp32_peak`` divides the decoder MLPs' model FLOPs
 (3 x the forward's, from the measured rays/s and 48 samples a ray) by
@@ -139,16 +152,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make_cycle(wl: Workload, grid_vjp: str = "halo", seed: int = 0, draw_seed: int = 2):
+def make_cycle(wl: Workload, grid_vjp: str = "halo", seed: int = 0, draw_seed: int = 2,
+               step_mode: Optional[str] = None):
     """A fresh scene (``init_scene`` seeded ``seed``) and one cycle on it.
     Returns (params, cycle); each ``cycle()`` maps one frame from a fresh
     Adam state, then tracks ``TRACKED_FRAMES`` frames, in place on the
     scene, drawing pixels from one generator seeded ``draw_seed``, and
-    returns (losses, mapping seconds, tracking seconds)."""
+    returns (losses, mapping seconds, tracking seconds). ``step_mode``
+    (``utils/step_graph.py:resolve_step_mode``): the iterations replayed as
+    CUDA graphs or run eagerly; by default graphs on the card."""
     from attentive_dfprior_tpu_torch.models.scene import init_scene
-    from attentive_dfprior_tpu_torch.ops.adam import adam_init
     from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, mapping_stage
     from attentive_dfprior_tpu_torch.slam.tracker import track_frame
+    from attentive_dfprior_tpu_torch.utils.step_graph import StepGraphs
     from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 
     w, dev = wl.spec, wl.device
@@ -156,19 +172,20 @@ def make_cycle(wl: Workload, grid_vjp: str = "halo", seed: int = 0, draw_seed: i
     for t in tree_leaves(params):
         t.requires_grad_(True)
     draws = torch.Generator(device=dev).manual_seed(draw_seed)
+    graphs = StepGraphs(step_mode, dev)
     lrs = StageLRs(decoders=5e-3, mlp=5e-3, low=5e-3, high=5e-3, color=5e-3)
     cam_t = torch.tensor([1.0, 0.0, 0.0, 0.0, 2.0, 1.0, 0.0], device=dev)
     pixs_per_image = w["pixels"] // w["F"]
 
     def cycle() -> Tuple[torch.Tensor, float, float]:
-        astate = adam_init(params)
+        astate = graphs.adam("scene", params)  # zeroed in place: a fresh state at the graphs' addresses
         losses = []
         t0 = time.perf_counter()
         for stage, n in w["map_iters"].items():
             losses.append(mapping_stage(
                 params, astate, wl.colors, wl.depths, wl.c2ws, None, wl.tsdf, wl.bound, wl.bound, n, [0.0] * n,
                 lrs, stage, pixs_per_image, wl.cam, wl.rcfg, (False, False), 0.2, generator=draws,
-                grid_vjp=grid_vjp,
+                grid_vjp=grid_vjp, graphs=graphs,
             ))
         _sync(dev)
         t1 = time.perf_counter()
@@ -176,12 +193,13 @@ def make_cycle(wl: Workload, grid_vjp: str = "halo", seed: int = 0, draw_seed: i
             _, tl, _, _ = track_frame(
                 params, cam_t, wl.colors[0], wl.depths[0], wl.tsdf, wl.bound, wl.bound, wl.cam, wl.rcfg,
                 w["track_pixels"], w["track_iters"], 100, 100, True, True, 0.5, 1e-3, generator=draws,
-                grid_vjp=grid_vjp,
+                grid_vjp=grid_vjp, graphs=graphs,
             )
             losses.append(tl)
         _sync(dev)
         return torch.cat(losses), t1 - t0, time.perf_counter() - t1
 
+    cycle.graphs = graphs
     return params, cycle
 
 
@@ -194,63 +212,108 @@ def flops_fwd_per_point(params: Dict[str, Any]) -> int:
     return sum(2 * t.numel() for k in ("low", "high", "color", "mlp") for t in tree_leaves(params[k]) if t.dim() == 2)
 
 
-def measure_workload(name: str, reps: int = 5, device=None, grid_vjp: str = "halo") -> Dict[str, Any]:
-    """Build workload ``name``, run one warm-up cycle, then ``reps`` timed
-    cycles. Returns the record (``_flops_fwd_per_point`` is for ``main``)."""
+def default_modes(device: torch.device) -> List[str]:
+    """Both step modes on the card, graph first; eager alone on the CPU."""
+    return ["graph", "eager"] if device.type == "cuda" else ["eager"]
+
+
+def measure_workload(name: str, reps: int = 5, device=None, grid_vjp: str = "halo") -> Dict[str, Dict[str, Any]]:
+    """Build workload ``name``, then for each step mode of
+    ``default_modes`` its scene and one warm-up cycle, then ``reps`` timed
+    cycles per mode, the modes in turns. Returns {mode: record}
+    (``_flops_fwd_per_point`` is for ``main``)."""
     from attentive_dfprior_tpu_torch.ops.cuda.build import port_kernels
+    from attentive_dfprior_tpu_torch.utils.step_graph import graph_pool_bytes
 
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
-    held = 0  # what the caller holds on entry: the peak below is the workload's own, above it
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
-        held = torch.cuda.memory_allocated(dev)
+    modes = default_modes(dev)
+
+    def allocated() -> int:
+        return torch.cuda.memory_allocated(dev) if cuda else 0
+
+    def start() -> int:
+        """Reset the peak; the bytes allocated now."""
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        return allocated()
+
+    def peak_above(base: int) -> int:
+        """The most allocated since ``start``, above its ``base``."""
+        return torch.cuda.max_memory_allocated(dev) - base if cuda else 0
+
+    held = start()
     t0 = time.perf_counter()
     wl = build_workload(name, dev)
-    params, cycle = make_cycle(wl, grid_vjp)
     _sync(dev)
     build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    losses, _, _ = cycle()
-    warmup_s = time.perf_counter() - t0
-    finite = bool(torch.isfinite(losses).all())
+    inputs = allocated() - held  # the workload's inputs, which both modes read
     kernels = port_kernels()
-    before = {k.name: k.launches for k in kernels}
-    rep_times: List[float] = []
-    splits: List[Tuple[float, float]] = []
-    for _ in range(reps):
+    cycles, warmup_s, finite, pool, resident, peak = {}, {}, {}, {}, {}, {}
+    for m in modes:
+        base = start()
+        before = graph_pool_bytes()
+        cycles[m] = make_cycle(wl, grid_vjp, step_mode=m)
         t0 = time.perf_counter()
-        losses, map_s, track_s = cycle()
-        rep_times.append(time.perf_counter() - t0)
-        splits.append((map_s, track_s))
-        finite = finite and bool(torch.isfinite(losses).all())
+        losses, _, _ = cycles[m][1]()
+        warmup_s[m] = time.perf_counter() - t0
+        finite[m] = bool(torch.isfinite(losses).all())
+        pool[m] = (graph_pool_bytes() - before) / 2**30
+        peak[m] = peak_above(base)  # the scene, the static buffers and the capture
+        resident[m] = allocated() - base  # what the mode keeps between cycles
+    rep_times: Dict[str, List[float]] = {m: [] for m in modes}
+    splits: Dict[str, List[Tuple[float, float]]] = {m: [] for m in modes}
+    launches = {m: {k.name: 0 for k in kernels} for m in modes}
+    last = {}
+    turn = modes + modes[::-1]
+    order = (turn * reps)[: reps * len(modes)] if len(modes) > 1 else modes * reps
+    for m in order:
+        before = {k.name: k.launches for k in kernels}
+        base = start()
+        t0 = time.perf_counter()
+        losses, map_s, track_s = cycles[m][1]()
+        rep_times[m].append(time.perf_counter() - t0)
+        peak[m] = max(peak[m], resident[m] + peak_above(base))
+        splits[m].append((map_s, track_s))
+        for k in kernels:
+            launches[m][k.name] += k.launches - before[k.name]
+        finite[m] = finite[m] and bool(torch.isfinite(losses).all())
+        last[m] = losses
     rays = rays_per_cycle(name)
-    cycle_s = float(np.median(rep_times))
-    return {
-        "workload": name,
-        "grid_vjp": grid_vjp,
-        "rays_per_cycle": rays,
-        "cycle_s_median": cycle_s,
-        "rep_times_s": rep_times,
-        "rays_per_s": rays / cycle_s,
-        "rays_per_s_min": rays / max(rep_times),
-        "rays_per_s_max": rays / min(rep_times),
-        "map_s_median": float(np.median([m for m, _ in splits])),
-        "track_s_median": float(np.median([t for _, t in splits])),
-        "build_s": build_s,
-        "warmup_s": warmup_s,
-        "samples_per_ray": wl.rcfg.N_samples + wl.rcfg.N_surface,
-        "tsdf_dims": list(wl.tsdf.shape),
-        "tsdf_voxels": int(wl.tsdf.numel()),
-        "grids": {k: list(params[k].shape) for k in ("grid_low", "grid_high", "grid_color")},
-        "device_peak_mem_gb": (torch.cuda.max_memory_allocated(dev) - held) / 2**30 if cuda else None,
-        "device_mem_held_on_entry_gb": held / 2**30 if cuda else None,
-        "launches_per_cycle": {k.name: (k.launches - before[k.name]) / reps for k in kernels},
-        "losses_finite": finite,
-        "last_losses": {"map": float(losses[sum(WORKLOADS[name]["map_iters"].values()) - 1]),
-                        "track": float(losses[-1])},
-        "_flops_fwd_per_point": flops_fwd_per_point(params),
-    }
+    out = {}
+    for m in modes:
+        params = cycles[m][0]
+        cycle_s = float(np.median(rep_times[m]))
+        out[m] = {
+            "workload": name,
+            "step_mode": m,
+            "graphed": m == "graph",
+            "grid_vjp": grid_vjp,
+            "rays_per_cycle": rays,
+            "cycle_s_median": cycle_s,
+            "rep_times_s": rep_times[m],
+            "rays_per_s": rays / cycle_s,
+            "rays_per_s_min": rays / max(rep_times[m]),
+            "rays_per_s_max": rays / min(rep_times[m]),
+            "map_s_median": float(np.median([a for a, _ in splits[m]])),
+            "track_s_median": float(np.median([b for _, b in splits[m]])),
+            "build_s": build_s,
+            "warmup_s": warmup_s[m],
+            "samples_per_ray": wl.rcfg.N_samples + wl.rcfg.N_surface,
+            "tsdf_dims": list(wl.tsdf.shape),
+            "tsdf_voxels": int(wl.tsdf.numel()),
+            "grids": {k: list(params[k].shape) for k in ("grid_low", "grid_high", "grid_color")},
+            "device_peak_mem_gb": (inputs + peak[m]) / 2**30 if cuda else None,
+            "device_mem_held_on_entry_gb": held / 2**30 if cuda else None,
+            "graph_pool_gb": pool[m] if cuda else None,
+            "launches_per_cycle": {k: n / len(rep_times[m]) for k, n in launches[m].items()},
+            "graphs": cycles[m][1].graphs.stats(),
+            "losses_finite": finite[m],
+            "last_losses": {"map": float(last[m][sum(WORKLOADS[name]["map_iters"].values()) - 1]),
+                            "track": float(last[m][-1])},
+            "_flops_fwd_per_point": flops_fwd_per_point(params),
+        }
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
@@ -272,9 +335,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    modes = default_modes(dev)
     primary = "replica" if args.workload in ("replica", "both") else "scannet"
-    rec = measure_workload(primary, args.reps, dev, args.grid_vjp)
-    flops = rec.pop("_flops_fwd_per_point")
+    recs = measure_workload(primary, args.reps, dev, args.grid_vjp)
+    for r in recs.values():
+        flops = r.pop("_flops_fwd_per_point")
+    rec = recs[modes[0]]
     rays_per_s = rec["rays_per_s"]
     point_evals_per_s = rays_per_s * rec["samples_per_ray"]
     est_flops_per_s = 3.0 * flops * point_evals_per_s
@@ -290,6 +356,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "workload": primary,
         "reps": args.reps,
         "grid_vjp": args.grid_vjp,
+        "step_mode": modes[0],
+        "graphed": modes[0] == "graph",
         "median": rays_per_s,
         "min": rec["rays_per_s_min"],
         "max": rec["rays_per_s_max"],
@@ -312,13 +380,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "losses_finite": rec["losses_finite"],
         "record": rec,
     }
+    for m in modes[1:]:
+        payload[m] = recs[m]  # the other mode's record, under its name ("eager")
     if args.workload == "both":
-        srec = measure_workload("scannet", args.reps, dev, args.grid_vjp)
-        srec.pop("_flops_fwd_per_point")
-        payload["scannet"] = srec
+        srecs = measure_workload("scannet", args.reps, dev, args.grid_vjp)
+        for r in srecs.values():
+            r.pop("_flops_fwd_per_point")
+        payload["scannet"] = srecs[modes[0]]
+        for m in modes[1:]:
+            payload[f"scannet_{m}"] = srecs[m]
     print(json.dumps(payload), flush=True)
-    print(f"# cycle_med={rec['cycle_s_median']:.4f}s reps={rec['rep_times_s']} rays/cycle={rec['rays_per_cycle']} "
-          f"device={payload['device_kind']}", file=sys.stderr)
+    for m in modes:
+        print(f"# {m}: cycle_med={recs[m]['cycle_s_median']:.4f}s reps={recs[m]['rep_times_s']} "
+              f"rays/cycle={recs[m]['rays_per_cycle']} device={payload['device_kind']}", file=sys.stderr)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(payload, f, indent=1)

@@ -131,6 +131,7 @@ def child_measure(n_devices: int, pixels: int, n_iters: int, reps: int, device: 
             "launches": {k.name: k.launches - before[k.name] for k in kernels},
             "backend": dist.get_backend() if group else "none",
             "device": str(dev),
+            "step_mode": "eager",  # the dp step's collectives cannot be captured; one rank runs the same step
         }
     finally:
         if group:

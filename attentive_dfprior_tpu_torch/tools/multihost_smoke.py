@@ -278,7 +278,7 @@ def slam_worker(spec) -> Dict[str, Any]:
             events = [json.loads(ln) for ln in f]
     return {
         "rank": rank, "world": dist.get_world_size() if dist.is_initialized() else 1,
-        "device": str(slam.device), "dp": slam.shards is not None, "role": slam.role,
+        "device": str(slam.device), "dp": slam.shards is not None, "role": slam.role, "step_mode": slam.step_mode,
         "writer": slam.is_writer, "schedule": slam.schedule_records,
         "schedule_events": [[e["event"], e["idx"]] for e in events
                             if e["event"] in ("map", "publish", "publish_skip", "track")],

@@ -11,7 +11,10 @@ prior of 196 M voxels, five 680x1200 frames; 1000 rays x 48 samples =
 
   - ``full_iter_color``: the production iteration (``mapping_stage``:
     draw, render, loss, backward, frustum-free masks, lazy Adam) under the
-    ``halo`` gradient; ``fwd_loss_color`` (the loss, no autograd graph);
+    ``halo`` gradient, on the card replayed as a CUDA graph
+    (``utils/step_graph.py``), and on the card ``full_iter_color_eager``,
+    the same iteration run eagerly, the two timed in turns;
+    ``fwd_loss_color`` (the loss, no autograd graph);
     ``fwd_bwd_color`` (loss and every leaf's gradient, no Adam);
     ``adam_update`` alone;
   - per grid: ``gather_fwd_<grid>`` (the trilinear gather), and the grid
@@ -31,10 +34,13 @@ prior of 196 M voxels, five 680x1200 frames; 1000 rays x 48 samples =
 The JAX profile slopes two ``lax.scan`` lengths to cancel a relay's
 round trip; here the question is host against device. Each row reports
 ``ms_per_iter``, the median over ``--reps`` of ``--iters`` iterations with a
-synchronize at each end, and the K1 / K3 / K2 launches per iteration; on
-the card, one ``torch.profiler`` pass over the same iterations gives the
-device kernels and device milliseconds per iteration. The profiler passes
-run after every timed row: the profiler slows what runs after it.
+synchronize at each end, and the K1 / K3 / K2 launches per iteration (a
+graph replay counts the launches its capture holds); on the card, one
+``torch.profiler`` pass over the same iterations gives the device kernels
+and device milliseconds per iteration and the launches the host made
+(kernel launches, graph launches, copies and fills: the CUDA runtime calls
+in the trace). The profiler passes run after every timed row: the
+profiler slows what runs after it.
 
 Left out: the JAX rows ``tsdf_sample_rows``, ``full_iter_color_rows``,
 ``fwd_loss_color_rows`` and ``fwd_bwd_color_rows``. They compare the TPU's
@@ -75,6 +81,7 @@ def make_rows(device: torch.device, workload: str = "replica", rays: int = RAYS)
     from attentive_dfprior_tpu_torch.ops.cuda.halo_fold_kernel import cell_fold_plain
     from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, build_lr_tree, mapping_loss_fn, mapping_stage
     from attentive_dfprior_tpu_torch.tools import bench
+    from attentive_dfprior_tpu_torch.utils.step_graph import StepGraphs
     from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
 
     wl = bench.build_workload(workload, device)
@@ -106,10 +113,15 @@ def make_rows(device: torch.device, workload: str = "replica", rays: int = RAYS)
 
         return run
 
-    def full_iter(n: int):
-        return mapping_stage(params, adam_init(params), wl.colors, wl.depths, wl.c2ws, None, tsdf, bound, bound, n,
-                             [0.0] * n, lrs, "color", rays // F, wl.cam, rcfg, (False, False), 0.2,
-                             generator=draws, grid_vjp="halo")
+    def full_iter_in(mode: Optional[str]):
+        graphs = StepGraphs(mode, device)
+
+        def run(n: int):
+            return mapping_stage(params, graphs.adam("scene", params), wl.colors, wl.depths, wl.c2ws, None, tsdf,
+                                 bound, bound, n, [0.0] * n, lrs, "color", rays // F, wl.cam, rcfg, (False, False),
+                                 0.2, generator=draws, grid_vjp="halo", graphs=graphs)
+
+        return run
 
     def loss():
         return mapping_loss_fn(params, ro, rd, gd, gc, inside, tsdf, bound, bound, "color", rcfg, 0.2, 0.0)
@@ -132,11 +144,13 @@ def make_rows(device: torch.device, workload: str = "replica", rays: int = RAYS)
         return adam_params["grid_high"]
 
     rows: Dict[str, Callable[[int], Any]] = {
-        "full_iter_color": full_iter,
+        "full_iter_color": full_iter_in(None),
         "fwd_loss_color": repeat(fwd_loss),
         "fwd_bwd_color": repeat(fwd_bwd),
         "adam_update": repeat(adam),
     }
+    if device.type == "cuda":
+        rows["full_iter_color_eager"] = full_iter_in("eager")
 
     def gather(grid):
         def step():
@@ -205,46 +219,79 @@ def _finite(out: Any) -> bool:
 
 
 def time_row(run: Callable[[int], Any], n: int, reps: int, device: torch.device) -> Dict[str, Any]:
-    """One warm-up iteration, then ``reps`` timings of ``n`` iterations with
-    a synchronize at each end; the kernels' launches over the first."""
+    """``WARMUP_ITERS + 1`` warm-up iterations (a graphed row's eager
+    warm-up and its capture, ``utils/step_graph.py``, so that every timed
+    iteration of it is a replay), then ``reps`` timings of ``n`` iterations
+    with a synchronize at each end; the kernels' launches over the first."""
+    return time_rows_in_turns([run], n, reps, device)[0]
+
+
+def time_rows_in_turns(runs: List[Callable[[int], Any]], n: int, reps: int,
+                       device: torch.device) -> List[Dict[str, Any]]:
+    """``time_row`` for several rows, their timings in turns (a, b, b, a,
+    ...), so that they meet the same drift of the host."""
     from attentive_dfprior_tpu_torch.ops.cuda.build import port_kernels
+    from attentive_dfprior_tpu_torch.utils.step_graph import WARMUP_ITERS
 
     kernels = port_kernels()
-    out = run(1)
-    _sync(device)
-    finite = _finite(out)
-    times, launches = [], None
-    for _ in range(reps):
+    finite, times, launches = [], [[] for _ in runs], [None] * len(runs)
+    for run in runs:
+        out = run(WARMUP_ITERS + 1)
+        _sync(device)
+        finite.append(_finite(out))
+    turn = list(range(len(runs))) + list(range(len(runs)))[::-1]
+    for i in (turn * reps)[: reps * len(runs)]:
         before = {k.name: k.launches for k in kernels}
         t0 = time.perf_counter()
-        out = run(n)
+        out = runs[i](n)
         _sync(device)
-        times.append((time.perf_counter() - t0) / n)
-        finite = finite and _finite(out)
-        if launches is None:
-            launches = {k.name: (k.launches - before[k.name]) / n for k in kernels}
-    return {"ms_per_iter": 1e3 * float(np.median(times)), "rep_ms": [1e3 * t for t in times], "finite": finite,
-            "launches_per_iter": launches}
+        times[i].append((time.perf_counter() - t0) / n)
+        finite[i] = finite[i] and _finite(out)
+        if launches[i] is None:
+            launches[i] = {k.name: (k.launches - before[k.name]) / n for k in kernels}
+    return [{"ms_per_iter": 1e3 * float(np.median(t)), "rep_ms": [1e3 * x for x in t], "finite": f,
+             "launches_per_iter": ln} for t, f, ln in zip(times, finite, launches)]
 
 
-def profile_row(run: Callable[[int], Any], n: int, device: torch.device) -> Dict[str, Any]:
-    """One ``torch.profiler`` pass over ``n`` iterations, the device traced
-    alone: device milliseconds and kernels per iteration (None on the CPU,
-    or when the profiler records no device time)."""
-    if device.type != "cuda":
-        return {"device_ms_per_iter": None, "device_kernels_per_iter": None}
+# the CUDA API calls by which the host launches device work
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def trace_device(fn: Callable[[], Any], device: torch.device) -> Dict[str, float]:
+    """``fn()`` once under ``torch.profiler``, the device traced alone, its
+    events summed straight from the trace: device seconds and device
+    kernels (copies and fills included), and the host's launch calls
+    (``HOST_LAUNCH_CALLS``; 0 when the trace holds no runtime calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _sync(device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run(n)
+        fn()
         _sync(device)
-    dev = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
-    busy_us = sum(a.self_device_time_total for a in dev)
-    if busy_us <= 0:
-        return {"device_ms_per_iter": None, "device_kernels_per_iter": None}
-    return {"device_ms_per_iter": busy_us / 1e3 / n, "device_kernels_per_iter": sum(a.count for a in dev) / n}
+    busy_ns = kernels = launches = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            busy_ns += e.duration_ns()
+            kernels += 1
+        elif e.name() in HOST_LAUNCH_CALLS:
+            launches += 1
+    return {"device_s": busy_ns / 1e9, "device_kernels": kernels, "host_launches": launches}
+
+
+def profile_row(run: Callable[[int], Any], n: int, device: torch.device) -> Dict[str, Any]:
+    """One ``torch.profiler`` pass over ``n`` iterations (``trace_device``):
+    device milliseconds, device kernels and host launches per iteration
+    (None on the CPU, or where the profiler records none)."""
+    none = {"device_ms_per_iter": None, "device_kernels_per_iter": None, "host_launches_per_iter": None}
+    if device.type != "cuda":
+        return none
+    t = trace_device(lambda: run(n), device)
+    if t["device_s"] <= 0:
+        return none
+    return {"device_ms_per_iter": 1e3 * t["device_s"] / n, "device_kernels_per_iter": t["device_kernels"] / n,
+            "host_launches_per_iter": t["host_launches"] / n if t["host_launches"] else None}
 
 
 def profile(device=None, iters: int = 10, reps: int = 3, only: Optional[str] = None,
@@ -255,7 +302,11 @@ def profile(device=None, iters: int = 10, reps: int = 3, only: Optional[str] = N
     rows = {k: v for k, v in make_rows(dev, workload, rays).items() if not only or only in k}
     results = {}
     for name, run in rows.items():
-        results[name] = time_row(run, iters, reps, dev)
+        if name in results:
+            continue
+        pair = [name] + ([f"{name}_eager"] if f"{name}_eager" in rows else [])
+        for key, rec in zip(pair, time_rows_in_turns([rows[k] for k in pair], iters, reps, dev)):
+            results[key] = rec
         r = results[name]
         print(f"[{name}] {r['ms_per_iter']:10.3f} ms/iter  (reps {', '.join(f'{t:.3f}' for t in r['rep_ms'])}; "
               f"launches/iter {json.dumps(r['launches_per_iter'])})", flush=True)
@@ -275,11 +326,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     results = profile(args.device, args.iters, args.reps, args.only)
     print()
-    print(f"{'piece':<30} {'ms/iter':>10} {'device ms/iter':>15} {'kernels/iter':>13}")
+    print(f"{'piece':<30} {'ms/iter':>10} {'device ms/iter':>15} {'kernels/iter':>13} {'host launches/iter':>19}")
     for k, r in results.items():
-        dms, nk = r["device_ms_per_iter"], r["device_kernels_per_iter"]
+        dms, nk, hl = r["device_ms_per_iter"], r["device_kernels_per_iter"], r["host_launches_per_iter"]
         print(f"{k:<30} {r['ms_per_iter']:>10.3f} {'not measured' if dms is None else f'{dms:.3f}':>15} "
-              f"{'not measured' if nk is None else f'{nk:.1f}':>13}")
+              f"{'not measured' if nk is None else f'{nk:.1f}':>13} "
+              f"{'not measured' if hl is None else f'{hl:.1f}':>19}")
     total = sum(r["ms_per_iter"] for k, r in results.items() if k.startswith("scatter_bwd_grid"))
     print(f"{'sum(scatter_bwd_grid_*)':<30} {total:>10.3f}")
     payload = {"rows": results, "iters": args.iters, "reps": args.reps, "device": args.device,

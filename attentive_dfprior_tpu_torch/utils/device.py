@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import os
 import subprocess
-from typing import Optional, Union
+import threading
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -37,6 +38,25 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and dev.index is None and dist.is_initialized():
         dev = torch.device("cuda", local_rank())
     return dev
+
+
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+_CONSTANTS_LOCK = threading.Lock()
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A constant tensor of ``values`` (a number or a tuple) on ``device``,
+    made once per process and reused: a step that a CUDA graph captures
+    may not copy from the host, so it reads constants made before."""
+    dev = torch.device(device)
+    key = (values, dtype, dev.type, dev.index if dev.index is not None else (0 if dev.type == "cuda" else None))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with _CONSTANTS_LOCK:
+            t = _CONSTANTS.get(key)
+            if t is None:
+                t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=dev)
+    return t
 
 
 def card_name_and_power() -> str:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-5, 7, 10, 12, 13, 15, 16 and 17, one card
+    python3 chip_smoke.py                # phases 1-5, 7, 10, 12, 13, 15, 16, 17 and 19, one card
     python3 chip_smoke.py --phases 1,2   # build + kernel checks only
     python3 chip_smoke.py --phases 1,8   # the room.yaml quality run
     python3 chip_smoke.py --phases 1,9   # the room_tracking.yaml quality run
@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases 1,16  # the async agents across processes alone
     python3 chip_smoke.py --phases 1,17  # the harnesses alone
     python3 chip_smoke.py --phases 1,18  # the tracking ablation (two variants, 16 frames)
+    python3 chip_smoke.py --phases 1,19  # graphed against eager, torch.equal
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
@@ -21,17 +22,23 @@ Phases (each failure exits non-zero):
      the native host library (marching tetrahedra, rasterizer) with g++;
   2. every kernel against its plain PyTorch version on the card, at odd
      shapes and at the main path's shapes, with CUDA-event timings; K3
-     also against K1;
+     also against K1; ``ops/compositing.py:cumprod_positive`` (the
+     capturable transmittance product) ``torch.equal`` to ``torch.cumprod``,
+     values and gradients, at the main path's sample shapes;
   3. the room0-shape SLAM cycle (``tools/bench.py``'s replica workload,
      from its builder) under the ``halo`` grid gradient (K1) and the
-     ``pallas`` one (K3), timed in turns: one mapped frame of 25/12/23
-     stage iterations x 1000 rays x 48 samples over a window of 5 random
-     680x1200 frames, a random 4/256 m prior of ~196 M voxels, then 5
-     tracked frames of 10 iterations x 200 rays. The halo cycle is
-     profiled at the very end of the run: the profiler slows what runs
-     after it in the process;
+     ``pallas`` one (K3), each with its iterations replayed as CUDA graphs
+     and run eagerly (``utils/step_graph.py``), the four timed in turns,
+     four reps each: one mapped frame of 25/12/23 stage iterations x 1000
+     rays x 48 samples over a window of 5 random 680x1200 frames, a random
+     4/256 m prior of ~196 M voxels, then 5 tracked frames of 10
+     iterations x 200 rays; fails unless a replay counts the launches the
+     eager cycle makes. The halo cycles (graphed and eager) are profiled
+     at the very end of the run (busy share, host launches per
+     iteration): the profiler slows what runs after it in the process;
   4. the entry point ``attentive_dfprior_tpu_torch.run`` on
-     configs/Synthetic/room_tracking.yaml as configured (loop closure on)
+     configs/Synthetic/room_tracking.yaml as configured (loop closure on,
+     each iteration a graph replay, as in every single-process path below)
      with panels every 5th frame, frames 0..15 (tracks 1-15, maps 0, 5, 10
      and 15, relaxes the keyframes at 15, refines frames 1-15, writes the
      final meshes): losses, loop-closure records, aligned and unaligned
@@ -143,22 +150,38 @@ Phases (each failure exits non-zero):
  17. the harnesses: (a) ``tools/bench.py --workload scannet`` at 3 reps
      (the ScanNet shape: 5000 rays x 60 mapping iterations over a window
      of 10 random 480x640 frames, 5 x 50 x 1000 tracking rays, a random
-     345 M-voxel prior; phase 3 runs the replica workload): its JSON line;
-     fails on a non-finite loss, without K1 or without peak memory; (b) ``tools/profile_mapping.py``,
-     every row: fails on a non-finite row, unless K1 runs in the ``halo``
-     rows alone and K3 in the ``pallas`` rows alone; (c)
+     345 M-voxel prior; phase 3 runs the replica workload), graphed and
+     eager in turns at 4 reps: its JSON line; fails on a non-finite loss,
+     without K1, without peak memory, or without the graphed headline and
+     the eager record; both modes' cycles profiled at the end of the run;
+     (b) ``tools/profile_mapping.py``, every row, ``full_iter_color``
+     graphed and eager in turns, 4 reps: fails on a non-finite row, unless
+     K1 runs in the ``halo`` rows alone and K3 in the ``pallas`` rows
+     alone, or if the graphed iteration counts other launches; (c)
      ``tools/bench_scaling.py --devices 1 --pixels 1000,5000`` (a child, a
      world of one on NCCL) and its comm model's prediction for 2, 4 and 8
      H100s; fails on a non-finite loss or without K1;
  18. (only on request) ``tools/ablate_tracking.py --variants base,nodyn
      --end_idx 16`` and ``tools/collect_ablation.py``: each variant's
-     aligned ATE (printed, no gate).
+     aligned ATE (printed, no gate);
+ 19. graphed against eager, in a child under deterministic algorithms:
+     one ``SLAMSystem`` on room_tracking.yaml (frame 0's map cut to 100
+     iterations, the prior fused from every 10th frame), its mapper and
+     tracker given a fresh ``StepGraphs`` of each mode from the same scene
+     and generator state: (a) frame 0's three stages and a BA window of
+     frames 0-2 (F = 3), per-iteration losses, every final leaf and BA's
+     poses; (b) frames 1-5 tracked from one map, poses and losses; all
+     ``torch.equal``; (c) K1's launches, replays counted, equal to eager's.
+
+Phases 15 and 16 run ray-axis dp over gloo, whose collectives a graph
+cannot capture: their ranks run eager steps, and their records say so.
 
 Every path (each timed variant of phase 3, phases 4, 5, 5(b), 7, 8, 9, 10,
 11, 12, 13(b), 14, 17(a), 17(b) and 18, each of phase 10(a)'s three runs,
-and each of phase 15(b)'s four processes, phase 16's and phase 17(c)'s,
-counted in its child process) runs with the launch counts set to 0 just
-before it and read just after; the
+each of phase 19's two, and each of phase 15(b)'s four processes, phase
+16's and phase 17(c)'s, counted in its child process) runs with the launch
+counts set to 0 just before it and read just after (a graph replay adds
+the launches its capture holds); the
 ``kernels`` JSON line reports each kernel's launches over those paths with
 its error, time, plain time and bound. The last line is the contract's
 ``{"ok": true, ...}``.
@@ -214,13 +237,19 @@ ASYNC_DP_SET = ASYNC_EQUAL_SET + ["parallel.enable=True"]  # phase 16(a): phase 
 # phase 16(b) against phase 4's strict run: the JAX split test's 20 cm (tests/test_sharding.py:306)
 SPLIT_TRAJ_GATE_M = 0.20
 # phase 17(a): the ScanNet shape (phase 3 times the replica workload on the same builder)
-BENCH_WORKLOAD, BENCH_REPS = "scannet", 3
+BENCH_WORKLOAD, BENCH_REPS = "scannet", 4  # graphed and eager in turns
 PROFILE_ITERS = 5  # phase 17(b): iterations a timing (10 in the tool's default; cut for time)
+PROFILE_REPS = 4  # phase 17(b): timings a row, the graphed and eager iterations in turns
 # phase 17(b): the rows whose grid gradient runs K1 (K3: the scatter_bwd_pallas_* rows)
-PROFILE_HALO_ROWS = ("full_iter_color", "fwd_bwd_color", "scatter_bwd_grid_low", "scatter_bwd_grid_high",
+PROFILE_HALO_ROWS = ("full_iter_color", "full_iter_color_eager", "fwd_bwd_color", "scatter_bwd_grid_low", "scatter_bwd_grid_high",
                      "scatter_bwd_grid_color", "scatter_bwd_pair_highcolor")
 SCALING_PIXELS = "1000,5000"  # phase 17(c): the Replica and ScanNet rays a mapping iteration
 ABLATION_VARIANTS, ABLATION_END = "base,nodyn", 16  # phase 18
+# phase 19: graphed against eager; frame 0's map cut from 1000 iterations to 100 (as phase 10(a)), then a BA window
+GRAPH_EQUAL_SET = ["mapping.iters_first=100", "tsdf.space=10"]
+GRAPH_EQUAL_BA_WINDOW = (0, 1, 2)  # frames of the BA window (F = 3; mapped as frame 5, anchored at frame 0)
+GRAPH_EQUAL_TRACK = range(1, 6)  # phase 19(b): frames 1-5 tracked from one map
+GRAPH_CHILD_TAG = "GRAPH_EQUAL "  # the prefix of phase 19's result line in the child's output
 
 
 def fail(msg: str) -> None:
@@ -427,106 +456,191 @@ def phase_kernels(torch, dev):
             k3["C32"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         print(line, flush=True)
     rec["K3"] = k3
+
+    # ---- the transmittance's cumulative product (ops/compositing.py) ----
+    # cumprod_positive leaves out torch.cumprod's backward check for zeros,
+    # a host read that no capture allows: its values and gradients must be
+    # torch.equal to torch.cumprod's at the main path's sample shapes
+    # (tracking 200 and 1000 rays, mapping 1000 and 5000, 1 + 32 + 16
+    # samples), opaque samples (alpha = 1) included
+    from attentive_dfprior_tpu_torch.ops.compositing import cumprod_positive
+
+    for rays in (200, 1000, 5000):
+        alpha = torch.rand((rays, 48), generator=g, device=dev)
+        alpha[:, 5::11] = 1.0
+        a = torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-10], dim=-1)
+        ct = torch.randn(a.shape, generator=g, device=dev)
+        x, y = a.clone().requires_grad_(True), a.clone().requires_grad_(True)
+        ref, out = torch.cumprod(x, dim=-1), cumprod_positive(y)
+        (gx,), (gy,) = torch.autograd.grad(ref, x, ct), torch.autograd.grad(out, y, ct)
+        if not (torch.equal(ref, out) and torch.equal(gx, gy)):
+            fail(f"cumprod_positive differs from torch.cumprod at {tuple(a.shape)}: values max abs err "
+                 f"{float((ref - out).abs().max()):.3e}, gradients {float((gx - gy).abs().max()):.3e}")
+    print("cumprod_positive: values and gradients torch.equal to torch.cumprod at (200 | 1000 | 5000, 49)",
+          flush=True)
     return rec
+
+
+ROOM0_VARIANTS = (("halo", "graph"), ("halo", "eager"), ("pallas", "graph"), ("pallas", "eager"))
+
+
+def room0_label(variant) -> str:
+    """``halo`` / ``pallas`` for the graphed cycles, ``halo_eager`` /
+    ``pallas_eager`` for the eager ones."""
+    vjp, mode = variant
+    return vjp if mode == "graph" else f"{vjp}_eager"
 
 
 def phase_room0(torch, dev, kernels):
     """The room0-shape cycle (``tools/bench.py``'s replica workload, built
     by its ``build_workload`` and ``make_cycle``) under the ``halo`` (K1)
-    and ``pallas`` (K3) grid gradients, each from its own copy of one
-    initial scene and its own copy of one pixel-draw stream, timed in
-    turns. Returns ({variant: result}, {variant: cycle}); each result's
-    ``launches`` are the kernels' launches over its timed cycles. The
-    profile (``profile_cycles``) runs last in the script: the profiler
-    slows what runs after it."""
+    and ``pallas`` (K3) grid gradients, each with its iterations replayed
+    as CUDA graphs and run eagerly (``utils/step_graph.py``), each from its
+    own copy of one initial scene and its own copy of one pixel-draw
+    stream, timed in turns, four reps each. Returns ({label: result},
+    {label: cycle}); each result's ``launches`` are the kernels' launches
+    over its timed cycles (a replay counts its capture's). The profiles
+    (``profile_cycles``) run last in the script: the profiler slows what
+    runs after it."""
     from attentive_dfprior_tpu_torch.tools import bench
 
     wl = bench.build_workload("replica", dev)
     print(f"room0 prior: {tuple(wl.tsdf.shape)} = {wl.tsdf.numel() / 1e6:.1f} M voxels")
     rays = bench.rays_per_cycle("replica")
     own = {"halo": "halo_fold", "pallas": "cell_stencil"}
-    variants = ("halo", "pallas")
+    labels = [room0_label(v) for v in ROOM0_VARIANTS]
     cycles = {}
-    for v in variants:
-        params, cycles[v] = bench.make_cycle(wl, v)
+    for v, label in zip(ROOM0_VARIANTS, labels):
+        params, cycles[label] = bench.make_cycle(wl, v[0], step_mode=v[1])
     print(f"room0 grids: low {tuple(params['grid_low'].shape)}, high {tuple(params['grid_high'].shape)}")
-    for v in variants:
-        cycles[v]()  # warm-up: allocator, cuBLAS handles, kernel loads
-    reps = {v: [] for v in variants}
-    splits = {v: [] for v in variants}
-    launches = {v: {k.name: 0 for k in kernels} for v in variants}
-    peak = {v: 0.0 for v in variants}
-    # in turns (halo, pallas, pallas, halo, twice): both variants meet the
+    from attentive_dfprior_tpu_torch.utils.step_graph import graph_pool_bytes
+
+    warm, pool = {}, {}
+    for label in labels:  # warm-up: allocator, cuBLAS handles, kernel loads, the graphs' warm-up and capture
+        before = graph_pool_bytes()
+        t0 = time.perf_counter()
+        cycles[label]()
+        warm[label] = time.perf_counter() - t0
+        pool[label] = (graph_pool_bytes() - before) / 2**30
+    reps = {v: [] for v in labels}
+    splits = {v: [] for v in labels}
+    launches = {v: {k.name: 0 for k in kernels} for v in labels}
+    peak = {v: 0.0 for v in labels}
+    # in turns (each variant, then back, twice): every variant meets the
     # same host drift; every count is read over its own cycle
-    for v in ("halo", "pallas", "pallas", "halo") * 2:
+    for label in (labels + labels[::-1]) * 2:
         for k in kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        losses, map_s, track_s = cycles[v]()
-        reps[v].append(time.perf_counter() - t0)
-        splits[v].append((map_s, track_s))
-        peak[v] = max(peak[v], torch.cuda.max_memory_allocated() / 2**30)
+        losses, map_s, track_s = cycles[label]()
+        reps[label].append(time.perf_counter() - t0)
+        splits[label].append((map_s, track_s))
+        peak[label] = max(peak[label], torch.cuda.max_memory_allocated() / 2**30)
         for k in kernels:
-            launches[v][k.name] += k.launches
+            launches[label][k.name] += k.launches
         if not torch.isfinite(losses).all():
-            fail(f"room0 cycle ({v}): non-finite loss")
+            fail(f"room0 cycle ({label}): non-finite loss")
     results = {}
-    for v in variants:
-        cycle_s = float(np.median(reps[v]))
-        out = dict(grid_vjp=v, cycle_s=cycle_s, rep_s=reps[v], map_track_s=splits[v], rays_per_cycle=rays,
-                   rays_per_s=rays / cycle_s, peak_mem_gb=peak[v],
-                   launches_per_cycle={n: c // len(reps[v]) for n, c in launches[v].items()})
-        print(f"room0 cycle ({v}): {json.dumps(out)}", flush=True)
-        other = own["pallas" if v == "halo" else "halo"]
-        if launches[v][own[v]] <= 0 or launches[v][other] != 0:
-            fail(f"room0 cycle ({v}) launched {own[v]} {launches[v][own[v]]} times and "
-                 f"{other} {launches[v][other]} times (expected > 0 and 0)")
-        results[v] = dict(out, launches=launches[v])
+    for v, label in zip(ROOM0_VARIANTS, labels):
+        cycle_s = float(np.median(reps[label]))
+        out = dict(grid_vjp=v[0], step_mode=v[1], cycle_s=cycle_s, rep_s=reps[label], map_track_s=splits[label],
+                   warmup_s=warm[label], rays_per_cycle=rays, rays_per_s=rays / cycle_s, peak_mem_gb=peak[label],
+                   graph_pool_gb=pool[label], graphs=cycles[label].graphs.stats(),
+                   launches_per_cycle={n: c // len(reps[label]) for n, c in launches[label].items()})
+        print(f"room0 cycle ({label}): {json.dumps(out)}", flush=True)
+        other = own["pallas" if v[0] == "halo" else "halo"]
+        if launches[label][own[v[0]]] <= 0 or launches[label][other] != 0:
+            fail(f"room0 cycle ({label}) launched {own[v[0]]} {launches[label][own[v[0]]]} times and "
+                 f"{other} {launches[label][other]} times (expected > 0 and 0)")
+        results[label] = dict(out, launches=launches[label])
+    for vjp in ("halo", "pallas"):
+        g, e = results[vjp], results[f"{vjp}_eager"]
+        if g["launches_per_cycle"] != e["launches_per_cycle"]:
+            fail(f"room0 cycle ({vjp}): replays count {g['launches_per_cycle']} launches, eager "
+                 f"{e['launches_per_cycle']}")
+        print(f"room0 cycle ({vjp}): graphed {g['cycle_s']:.4f} s ({g['rays_per_s']:.1f} rays/s), eager "
+              f"{e['cycle_s']:.4f} s ({e['rays_per_s']:.1f} rays/s): {e['cycle_s'] / g['cycle_s']:.2f}x")
     return results, cycles
 
 
 def profile_cycles(torch, cycles, results) -> None:
-    """One profiled halo cycle (the pallas cycle's device time has matched
-    halo's within 1 % in every run that profiled both),
-    then one halo cycle timed again: how much the profiler slows what runs
-    after it."""
-    profile_cycle(torch, cycles["halo"], results["halo"]["cycle_s"], "halo")
+    """One profiled halo cycle, graphed and eager (the pallas cycle's
+    device time has matched halo's within 1 % in every run that profiled
+    both), then one graphed halo cycle timed again: how much the profiler
+    slows what runs after it."""
+    from attentive_dfprior_tpu_torch.tools import bench
+
+    iters = sum(bench.WORKLOADS["replica"]["map_iters"].values()) + (
+        bench.TRACKED_FRAMES * bench.WORKLOADS["replica"]["track_iters"])
+    for label in ("halo", "halo_eager"):
+        profile_cycle(torch, cycles[label], results[label]["cycle_s"], f"room0 {label}", iters)
     t0 = time.perf_counter()
     cycles["halo"]()
     print(f"room0 cycle (halo) again after the profile: {time.perf_counter() - t0:.4f} s "
           f"(before it: {results['halo']['cycle_s']:.4f} s)")
 
 
-def profile_cycle(torch, cycle, cycle_s: float, label: str) -> None:
+def profile_cycle(torch, cycle, cycle_s: float, label: str, iters: int) -> None:
     """One more cycle under torch.profiler, tracing the device alone (the
     host's operators, which the profile does not read, took it from about
     two minutes to one): the device's busy share of the unprofiled cycle
-    time, the number of device kernels, and the kernels that take the most
-    device time. The device's events are summed straight from the trace:
-    ``key_averages()`` builds a Python event per kernel first, which took
-    many times longer than the sums at a cycle's 229,255 kernels."""
+    time, the number of device kernels, the launches the host made per
+    iteration (kernel and graph launches, copies and fills: the runtime
+    calls in the trace) over the cycle's ``iters`` iterations, and the
+    kernels that take the most device time. The device's events are
+    summed straight from the trace: ``key_averages()`` builds a Python
+    event per kernel first, which took many times longer than the sums at
+    a cycle's 229,255 kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from attentive_dfprior_tpu_torch.tools.profile_mapping import HOST_LAUNCH_CALLS
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cycle()
     by_name = {}  # kernel name -> (launches, device ns)
+    host = {}  # runtime call -> count
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
             n, ns = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (n + 1, ns + e.duration_ns())
-    print(f"room0 profile ({label}): {time.perf_counter() - t0:.1f} s to trace and sum the cycle")
+        elif e.name() in HOST_LAUNCH_CALLS:
+            host[e.name()] = host.get(e.name(), 0) + 1
+    print(f"profile ({label}): {time.perf_counter() - t0:.1f} s to trace and sum the cycle")
     busy_s = sum(ns for _, ns in by_name.values()) / 1e9
     if busy_s <= 0:
-        print(f"room0 profile ({label}): the profiler recorded no device time (not measured)")
+        print(f"profile ({label}): the profiler recorded no device time (not measured)")
         return
     n_kernels = sum(n for n, _ in by_name.values())
-    print(f"room0 profile ({label}): device busy {busy_s:.4f} s of the {cycle_s:.4f} s cycle "
-          f"({100 * busy_s / cycle_s:.1f} %), {n_kernels} device kernels per cycle")
+    n_host = sum(host.values())
+    print(f"profile ({label}): device busy {busy_s:.4f} s of the {cycle_s:.4f} s cycle "
+          f"({100 * busy_s / cycle_s:.1f} %), {n_kernels} device kernels per cycle ({n_kernels / iters:.1f} per "
+          f"iteration); host launches per iteration "
+          + (f"{n_host / iters:.1f} ({json.dumps(host)} in the cycle)" if n_host else "not measured (no runtime "
+             "calls in the trace)"))
     for name, (n, ns) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {ns / 1e6:9.3f} ms  {n:6d} x  {name[:90]}")
+
+
+def profile_bench_cycles(torch, dev) -> None:
+    """Phase 17(a)'s workload (BENCH_WORKLOAD) profiled at the end of the
+    run, as phase 3's cycles are: for each step mode a fresh scene and
+    cycle (``tools/bench.py``'s builder), one warm-up cycle, one timed
+    cycle, then one profiled (``profile_cycle``): the busy share and the
+    host's launches per iteration beside 17(a)'s times."""
+    from attentive_dfprior_tpu_torch.tools import bench
+
+    spec = bench.WORKLOADS[BENCH_WORKLOAD]
+    iters = sum(spec["map_iters"].values()) + bench.TRACKED_FRAMES * spec["track_iters"]
+    wl = bench.build_workload(BENCH_WORKLOAD, dev)
+    for mode in ("graph", "eager"):
+        _, cycle = bench.make_cycle(wl, "halo", step_mode=mode)
+        cycle()
+        t0 = time.perf_counter()
+        cycle()
+        profile_cycle(torch, cycle, time.perf_counter() - t0, f"{BENCH_WORKLOAD} {mode}", iters)
 
 
 def expected_panels(cfg, start: int, n: int, n_img: int):
@@ -588,6 +702,10 @@ def report_run(slam, out_dir, wall: float, label: str, records):
         note = (f"{slam.sync_method}: track and map run on two threads and overlap; set-up: wall minus run(), "
                 f"the system's build, prior fusion, dataset frames rendered on the host")
     print(f"{label} seconds by part: {json.dumps(parts)} ({note})")
+    from attentive_dfprior_tpu_torch.utils.step_graph import graph_pool_bytes
+
+    print(f"{label}: {slam.step_mode} steps; mapper {json.dumps(slam.mapper.graphs.stats())}, tracker "
+          f"{json.dumps(slam.tracker.graphs.stats())}; graph pools held in the process {graph_pool_bytes() / 2**30:.3f} GiB")
     print(f"{label}: {wall:.1f} s for {n} frames; aligned ATE RMSE {ate['absolute_translational_error.rmse_cm']:.3f} "
           f"cm over {ate['compared_pose_pairs']} poses ({os.path.basename(ckpt)}); unaligned ATE RMSE "
           f"{100 * float(np.sqrt(np.mean(err ** 2))):.3f} cm")
@@ -732,7 +850,7 @@ def async_equal_child() -> None:
             digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in leaves[sync])).hexdigest()
             out["runs"][sync] = {"wall_s": wall, "events": {e: events.count(e) for e in sorted(set(events))},
                                  "launches": {k.name: k.launches for k in kernels}, "digest": digest,
-                                 "log": slam.schedule_records, "role": slam.role}
+                                 "log": slam.schedule_records, "role": slam.role, "step_mode": slam.step_mode}
     if ranks:
         dist.destroy_process_group()
     out["n_leaves"] = len(leaves["strict"])
@@ -761,8 +879,8 @@ def phase_async_equal(paths) -> None:
     res = json.loads(lines[-1][len(CHILD_TAG):])
     for sync, run in res["runs"].items():
         paths[f"async_equal_{sync}"] = run["launches"]
-        print(f"async equality {sync}: {run['wall_s']:.1f} s, events {json.dumps(run['events'])}, "
-              f"launches {json.dumps(run['launches'])}")
+        print(f"async equality {sync}: {run['wall_s']:.1f} s ({run['step_mode']} steps), events "
+              f"{json.dumps(run['events'])}, launches {json.dumps(run['launches'])}")
     for msg in res["warnings"]:
         print(f"async equality: warning: {msg}")
     print(f"async equality (frames 0-{ASYNC_EQUAL_END - 1}, {' '.join(ASYNC_EQUAL_SET)}, deterministic algorithms): "
@@ -770,6 +888,167 @@ def phase_async_equal(paths) -> None:
           f"scene {json.dumps(res['equal'])}; max abs diff {json.dumps(res['max_abs_diff'])}")
     if not (all(res["equal"].values()) and all(res["ckpt_equal"].values())):
         fail(f"async equality: the final scene differs from strict's: {json.dumps(res['max_abs_diff'])}")
+
+
+def graph_equal_child() -> None:
+    """Phase 19's runs, in a child process whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG``, under ``torch.use_deterministic_algorithms``:
+    one ``SLAMSystem`` on room_tracking.yaml with GRAPH_EQUAL_SET, its mapper
+    and tracker given a fresh ``StepGraphs`` of each step mode in turn
+    (eager, then graph), each run from the same initial scene and generator
+    state. (a) frame 0's mapping (all three stages), then a BA window of
+    frames GRAPH_EQUAL_BA_WINDOW (their GT poses, the later two moved 1 cm)
+    mapped as frame 5 at the config's iterations; (b) from the eager run's
+    map, frames GRAPH_EQUAL_TRACK tracked as ``Tracker.track`` does (the
+    constant-speed initial pose from the poses tracked before); (c) K1's
+    launches over (a), a graph replay counting the launches its capture
+    holds. Prints one line, GRAPH_CHILD_TAG and a JSON object: whether the
+    per-iteration losses, every final leaf, BA's refined poses, the tracked
+    poses and losses are ``torch.equal`` across the modes, the largest
+    differences, the launches, the graphs' counts and the seconds."""
+    import warnings
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.ops.cuda import build
+    from attentive_dfprior_tpu_torch.ops.pose import homogenize, pose_matrix_from_tensor, pose_tensor_from_matrix
+    from attentive_dfprior_tpu_torch.run import apply_overrides
+    from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
+    from attentive_dfprior_tpu_torch.slam.tracker import track_frame
+    from attentive_dfprior_tpu_torch.utils.step_graph import StepGraphs
+    from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
+
+    kernels = build.port_kernels()
+    os.chdir(REPO)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = load_config(ROOM_TRACKING, default_config_path())
+    apply_overrides(cfg, GRAPH_EQUAL_SET)
+    cfg["seed"] = 0
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    slam = SLAMSystem(cfg, output=tempfile.mkdtemp(prefix="chip_smoke_graph_equal_"), device=dev)
+    frames = {i: slam.dataset[i] for i in sorted({0, *GRAPH_EQUAL_BA_WINDOW, *GRAPH_EQUAL_TRACK})}
+    setup_s = time.perf_counter() - t0
+    init = [t.detach().clone() for t in tree_leaves(slam.params)]
+    gen_state = slam.generator.get_state()
+    m, tr = slam.mapper, slam.tracker
+    win_c2w = np.stack([frames[i][3] for i in GRAPH_EQUAL_BA_WINDOW]).astype(np.float32)
+    win_c2w[1:, :3, 3] += 0.01  # BA has poses to move
+    win_color = torch.stack([slam._to_device(frames[i][1]) for i in GRAPH_EQUAL_BA_WINDOW])
+    win_depth = torch.stack([slam._to_device(frames[i][2]) for i in GRAPH_EQUAL_BA_WINDOW])
+
+    def reset(leaves):
+        with torch.no_grad():
+            for t, v in zip(tree_leaves(slam.params), leaves):
+                t.copy_(v)
+        slam.generator.set_state(gen_state)
+
+    def run(mode):
+        m.graphs = StepGraphs(mode, dev)
+        tr.graphs = StepGraphs(mode, dev)
+        reset(init)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, c, d, gt = frames[0]
+        _, _, _, first = m.optimize_map(slam.params, m.iters_first, m.lr_first_factor, 0, slam._to_device(c)[None],
+                                        slam._to_device(d)[None], np.asarray(gt)[None], generator=slam.generator,
+                                        cur_depth_np=np.asarray(d), cur_c2w_np=gt)
+        _, _, refined, ba = m.optimize_map(slam.params, m.num_joint_iters, m.lr_factor, 5, win_color, win_depth, win_c2w,
+                                           generator=slam.generator, cur_depth_np=np.asarray(frames[2][2]),
+                                           cur_c2w_np=win_c2w[-1], ba_anchor=0)
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        mapped = [t.detach().clone() for t in tree_leaves(slam.params)]
+        losses = torch.cat([*first.values(), *ba.values()])
+        return dict(losses=losses, leaves=mapped, refined=refined, launches=launches, map_s=map_s,
+                    map_graphs=m.graphs.stats())
+
+    def track(mode, leaves):
+        tr.graphs = StepGraphs(mode, dev)
+        reset(leaves)
+        est = np.zeros((max(GRAPH_EQUAL_TRACK) + 1, 4, 4), np.float32)
+        est[0] = frames[0][3]
+        poses, losses = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for idx in GRAPH_EQUAL_TRACK:
+            _, c, d, _ = frames[idx]
+            cam_t = torch.as_tensor(pose_tensor_from_matrix(tr.initial_pose(idx, est)), device=dev)
+            best, tl, _, _ = track_frame(
+                slam.params, cam_t, slam._to_device(c), slam._to_device(d), tr.tsdf_volume, tr.tsdf_bnds, tr.bound,
+                tr.cam, tr.rcfg, tr.tracking_pixels, tr.num_cam_iters, tr.ignore_edge_W, tr.ignore_edge_H,
+                tr.handle_dynamic, tr.use_color, tr.w_color_loss, tr.cam_lr, tr.seperate_LR, tr.lr_final_factor,
+                slam.generator, None, tr.grid_vjp, tr.adam_lazy, graphs=tr.graphs,
+            )
+            with torch.no_grad():
+                est[idx] = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()
+            poses.append(best)
+            losses.append(tl)
+        torch.cuda.synchronize()
+        return dict(poses=torch.stack(poses), track_losses=torch.cat(losses), track_s=time.perf_counter() - t0,
+                    track_graphs=tr.graphs.stats())
+
+    out = {"setup_s": setup_s, "runs": {}}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = {mode: run(mode) for mode in ("eager", "graph")}
+        eager_map = res["eager"]["leaves"]
+        for mode in ("eager", "graph"):
+            res[mode].update(track(mode, eager_map))
+    e, g = res["eager"], res["graph"]
+
+    def maxdiff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    out["equal"] = {
+        "map_losses": torch.equal(e["losses"], g["losses"]),
+        "map_leaves": all(torch.equal(a, b) for a, b in zip(e["leaves"], g["leaves"])),
+        "ba_poses": bool(np.array_equal(e["refined"], g["refined"])),
+        "track_poses": torch.equal(e["poses"], g["poses"]),
+        "track_losses": torch.equal(e["track_losses"], g["track_losses"]),
+        "k1_launches": e["launches"]["halo_fold"] == g["launches"]["halo_fold"] > 0,
+    }
+    out["max_abs_diff"] = {"map_leaves": maxdiff(e["leaves"], g["leaves"]),
+                           "track_poses": float((e["poses"] - g["poses"]).abs().max())}
+    out["n_map_iters"], out["n_leaves"] = len(e["losses"]), len(e["leaves"])
+    for mode, r in res.items():
+        out["runs"][mode] = {"launches": r["launches"], "map_s": r["map_s"], "track_s": r["track_s"],
+                             "map_graphs": r["map_graphs"], "track_graphs": r["track_graphs"],
+                             "last_map_loss": float(r["losses"][-1])}
+    out["warnings"] = sorted({str(w.message).splitlines()[0][:160] for w in caught})
+    print(GRAPH_CHILD_TAG + json.dumps(out), flush=True)
+
+
+def phase_graph_equal(paths) -> None:
+    """Phase 19: ``graph_equal_child`` in a child process; fails unless the
+    graphed mapping (three stages and a BA window) and tracking (frames 1-5)
+    are ``torch.equal`` to eager and K1's launches, replays counted, equal
+    the eager run's. The child's launches are recorded as two paths."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")  # deterministic cuBLAS
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--graph-equal-child"], env=env,
+                          capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(GRAPH_CHILD_TAG)]
+    if proc.returncode != 0 or not lines:
+        fail(f"graph equality child exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(lines[-1][len(GRAPH_CHILD_TAG):])
+    for mode, run in res["runs"].items():
+        paths[f"graph_equal_{mode}"] = run["launches"]
+        print(f"graph equality {mode}: mapping {run['map_s']:.2f} s ({json.dumps(run['map_graphs'])}), tracking "
+              f"{run['track_s']:.2f} s ({json.dumps(run['track_graphs'])}), launches {json.dumps(run['launches'])}, "
+              f"last map loss {run['last_map_loss']:.6f}")
+    for msg in res["warnings"]:
+        print(f"graph equality: warning: {msg}")
+    print(f"graph equality ({' '.join(GRAPH_EQUAL_SET)}, frame 0's three stages and a BA window of frames "
+          f"{list(GRAPH_EQUAL_BA_WINDOW)}: {res['n_map_iters']} iterations, {res['n_leaves']} leaves; frames "
+          f"{list(GRAPH_EQUAL_TRACK)} tracked; deterministic algorithms; set-up {res['setup_s']:.1f} s): torch.equal "
+          f"{json.dumps(res['equal'])}; max abs diff {json.dumps(res['max_abs_diff'])}")
+    if not all(res["equal"].values()):
+        fail(f"graph equality: graphed and eager differ: {json.dumps(res['equal'])} {json.dumps(res['max_abs_diff'])}")
 
 
 def phase_entry_loose(torch, dev, strict):
@@ -1480,7 +1759,7 @@ def phase_dp(torch, paths) -> None:
     paths["dp_single"] = single["launches"]
     paths["dp_witness"] = witness["launches"]
     for tag, r in [(f"rank {r['rank']}/{r['world']}", r) for r in ranks] + [("single", single), ("witness", witness)]:
-        print(f"dp (b) {tag} on {r['device']}: seconds by part "
+        print(f"dp (b) {tag} on {r['device']} ({r['step_mode']} steps): seconds by part "
               f"{json.dumps({k: round(v, 3) for k, v in r['seconds'].items()})}, launches {json.dumps(r['launches'])}, "
               f"events {r['events']}")
     cmp = mh.compare_slam(ranks, single, rec, witness)
@@ -1512,6 +1791,8 @@ def phase_dp(torch, paths) -> None:
         if not g["ok"]:
             fail(f"dp (b): {key}: the dp run parts from the single run by {g['dp']:.4g} (witness {g['witness']}, "
                  f"limit {g['limit']:.4g})")
+    if any(r["step_mode"] != "eager" for r in ranks):
+        fail(f"dp (b): a dp rank ran {[r['step_mode'] for r in ranks]} steps: gloo collectives run eager")
     if not all(r["dp"] for r in ranks) or any(r["launches"]["halo_fold"] <= 0 for r in ranks):
         fail(f"dp (b): not both ranks ran dp mapping through K1: {[(r['dp'], r['launches']) for r in ranks]}")
 
@@ -1605,8 +1886,8 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
     for name, procs in results.items():
         for r in procs:
             paths[f"async_ranks_{name}_rank{r['rank']}"] = r["launches"]
-            print(f"async ranks {name} rank {r['rank']}/{r['world']} ({r['role']}{', writer' if r['writer'] else ''}): "
-                  f"seconds by part {json.dumps({k: round(v, 3) for k, v in r['seconds'].items()})}, "
+            print(f"async ranks {name} rank {r['rank']}/{r['world']} ({r['role']}{', writer' if r['writer'] else ''}, "
+                  f"{r['step_mode']} steps): seconds by part {json.dumps({k: round(v, 3) for k, v in r['seconds'].items()})}, "
                   f"launches {json.dumps(r['launches'])}, {len(r['schedule'])} log records")
     print(f"async ranks: {wall:.1f} s for {2 + sum(max(w, 1) for _, w in runs.values())} children")
 
@@ -1614,7 +1895,8 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
     for res in ranks:
         for sync, run in res["runs"].items():
             paths[f"async_ranks_{sync}_dp_rank{res['rank']}"] = run["launches"]
-            print(f"async ranks (a) {sync} rank {res['rank']}/2 ({run['role']}): {run['wall_s']:.1f} s, events "
+            print(f"async ranks (a) {sync} rank {res['rank']}/2 ({run['role']}, {run['step_mode']} steps): "
+                  f"{run['wall_s']:.1f} s, events "
                   f"{json.dumps(run['events'])}, launches {json.dumps(run['launches'])}, log {json.dumps(run['log'])}")
         ckpt = f", final checkpoint {json.dumps(res['ckpt_equal'])}" if "ckpt_equal" in res else ""
         print(f"async ranks (a) rank {res['rank']}/2 ({' '.join(ASYNC_DP_SET)}, frames 0-{ASYNC_EQUAL_END - 1}, "
@@ -1626,6 +1908,8 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
             fail(f"async ranks (a) rank {res['rank']}: the final scene differs from strict's on 2 ranks")
         if any(run["launches"]["halo_fold"] <= 0 for run in res["runs"].values()):
             fail(f"async ranks (a) rank {res['rank']}: a run mapped without K1")
+        if any(run["step_mode"] != "eager" for run in res["runs"].values()):
+            fail(f"async ranks (a) rank {res['rank']}: a dp run did not run eager steps")
     lead, follower = sorted(ranks, key=lambda r: r["rank"])
     for sync in ("strict", "loose", "free"):
         if lead["runs"][sync]["digest"] != follower["runs"][sync]["digest"]:
@@ -1678,9 +1962,11 @@ def phase_harnesses(torch, drive, paths) -> None:
     reps (the ScanNet shape: 345 M prior voxels, 5000 rays over a window
     of 10); fails on a non-finite loss, without K1 in the cycle, or
     without peak memory; (b)
-    ``tools/profile_mapping.py`` over every row; fails on a non-finite
+    ``tools/profile_mapping.py`` over every row (``full_iter_color``
+    graphed and ``full_iter_color_eager``, in turns); fails on a non-finite
     row, unless K1 runs in the ``halo`` rows alone and K3 in the ``pallas``
-    rows alone; (c) ``tools/bench_scaling.py --devices 1 --pixels
+    rows alone, or if the graphed iteration counts other launches than the
+    eager one; (c) ``tools/bench_scaling.py --devices 1 --pixels
     SCALING_PIXELS``, a world of one on NCCL, with the comm model's
     prediction for 2, 4 and 8 H100s; fails on a non-finite loss or without
     K1 in the child."""
@@ -1694,22 +1980,27 @@ def phase_harnesses(torch, drive, paths) -> None:
     out = drive("bench", bench.main, ["--workload", BENCH_WORKLOAD, "--reps", str(BENCH_REPS),
                                       "--out", os.path.join(work, "bench.json")])
     recs = {out["workload"]: out["record"]}
-    if "scannet" in out:
-        recs["scannet"] = out["scannet"]
+    if "eager" in out:
+        recs[f"{out['workload']} eager"] = out["eager"]
     for name, rec in recs.items():
         mem = rec["device_peak_mem_gb"]
-        print(f"bench {name}: {rec['rays_per_s']:.1f} rays/s (min {rec['rays_per_s_min']:.1f}, max "
-              f"{rec['rays_per_s_max']:.1f}), cycle {rec['cycle_s_median']:.4f} s = mapping "
+        print(f"bench {name} ({rec['step_mode']}): {rec['rays_per_s']:.1f} rays/s (min {rec['rays_per_s_min']:.1f}, "
+              f"max {rec['rays_per_s_max']:.1f}), cycle {rec['cycle_s_median']:.4f} s = mapping "
               f"{rec['map_s_median']:.4f} s + tracking {rec['track_s_median']:.4f} s over {rec['rays_per_cycle']} "
-              f"rays; prior {rec['tsdf_dims']} = {rec['tsdf_voxels'] / 1e6:.1f} M voxels; peak device memory "
-              f"{mem} GiB above the {rec['device_mem_held_on_entry_gb']} GiB held on entry; launches per cycle {json.dumps(rec['launches_per_cycle'])}; build {rec['build_s']:.1f} s, "
-              f"warm-up {rec['warmup_s']:.1f} s")
+              f"rays (reps {json.dumps(rec['rep_times_s'])}); prior {rec['tsdf_dims']} = {rec['tsdf_voxels'] / 1e6:.1f} "
+              f"M voxels; this mode's own peak device memory {mem} GiB (the {rec['device_mem_held_on_entry_gb']} GiB "
+              f"held on entry and the other mode's scene not counted), graph pools {rec['graph_pool_gb']} GiB; "
+              f"launches per cycle "
+              f"{json.dumps(rec['launches_per_cycle'])}; graphs {json.dumps(rec['graphs'])}; build "
+              f"{rec['build_s']:.1f} s, warm-up {rec['warmup_s']:.1f} s")
         if not rec["losses_finite"]:
             fail(f"bench {name}: a non-finite loss")
         if rec["launches_per_cycle"]["halo_fold"] <= 0:
             fail(f"bench {name}: the cycle launched no K1")
         if mem is None:
             fail(f"bench {name}: no peak device memory")
+    if not out["graphed"] or "eager" not in out:
+        fail(f"bench: the JSON line's headline is not graphed with an eager record beside it ({out['step_mode']})")
     print(f"bench: est_mfu_vs_chip_fp32_peak {out['est_mfu_vs_chip_fp32_peak']:.3e} "
           f"({out['est_model_flops_per_s'] / 1e12:.4f} TFLOP/s of {out['assumed_peak_flops'] / 1e12:.0f}); "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1717,13 +2008,14 @@ def phase_harnesses(torch, drive, paths) -> None:
     # (b) where a mapping iteration's milliseconds go
     t0 = time.perf_counter()
     rows = drive("profile_mapping", profile_mapping.main,
-                 ["--json", os.path.join(work, "profile.json"), "--iters", str(PROFILE_ITERS)])["rows"]
+                 ["--json", os.path.join(work, "profile.json"), "--iters", str(PROFILE_ITERS), "--reps",
+                  str(PROFILE_REPS)])["rows"]
     print(f"profile_mapping: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
     for name, r in rows.items():
         k1, k3 = r["launches_per_iter"]["halo_fold"], r["launches_per_iter"]["cell_stencil"]
         print(f"profile {name}: {r['ms_per_iter']:.4f} ms/iter (reps {r['rep_ms']}), device "
-              f"{r['device_ms_per_iter']} ms/iter over {r['device_kernels_per_iter']} kernels/iter; K1 {k1}, "
-              f"K3 {k3} a iteration")
+              f"{r['device_ms_per_iter']} ms/iter over {r['device_kernels_per_iter']} kernels/iter, host launches "
+              f"{r['host_launches_per_iter']} /iter; K1 {k1}, K3 {k3} a iteration")
         if not r["finite"]:
             fail(f"profile {name}: non-finite output")
         halo = name in PROFILE_HALO_ROWS
@@ -1731,6 +2023,8 @@ def phase_harnesses(torch, drive, paths) -> None:
         if (k1 > 0) != halo or (k3 > 0) != pallas:
             fail(f"profile {name}: K1 {k1} and K3 {k3} a iteration (expected K1 {'> 0' if halo else '0'}, "
                  f"K3 {'> 0' if pallas else '0'})")
+    if rows["full_iter_color"]["launches_per_iter"] != rows["full_iter_color_eager"]["launches_per_iter"]:
+        fail("profile full_iter_color: the replays count other launches than the eager iteration")
 
     # (c) dp scaling, a world of one
     t0 = time.perf_counter()
@@ -1771,12 +2065,16 @@ def phase_ablation(work: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13,15,16,17",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13,15,16,17,19",
                     help="comma-separated phases to run (6, 8, 9, 11, 14 and 18 only on request)")
     ap.add_argument("--async-equal-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--graph-equal-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.async_equal_child:
         async_equal_child()
+        return
+    if args.graph_equal_child:
+        graph_equal_child()
         return
     phases = {int(x) for x in args.phases.split(",")}
     if 7 in phases and 4 not in phases:
@@ -1824,8 +2122,8 @@ def main() -> None:
         done(2)
     if 3 in phases:
         room0, room0_cycles = phase_room0(torch, dev, kernels)
-        for variant, res in room0.items():
-            paths[f"room0_cycle_{variant}"] = res["launches"]
+        for label, res in room0.items():
+            paths[f"room0_cycle_{label}"] = res["launches"]
         done(3)
     strict_entry = None
     if 4 in phases:
@@ -1847,6 +2145,9 @@ def main() -> None:
             if paths["mesh"]["decoder_mlp"] <= 0:
                 fail("the Mesher launched no K2 (decoder MLP)")
             done(7)
+    if 19 in phases:
+        phase_graph_equal(paths)
+        done(19)
     if 6 in phases:
         phase_determinism(torch, dev)
         done(6)
@@ -1900,6 +2201,10 @@ def main() -> None:
     if 3 in phases:
         profile_cycles(torch, room0_cycles, room0)
         print(f"phase 3 profile: {time.perf_counter() - t_phase[0]:.1f} s")
+        t_phase[0] = time.perf_counter()
+    if 17 in phases:
+        profile_bench_cycles(torch, dev)
+        print(f"phase 17(a) profile: {time.perf_counter() - t_phase[0]:.1f} s")
     print(f"launches by path: {json.dumps(paths)}")
     print(f"K2 weight images built by path: {json.dumps(images)}")
     if kern is not None:

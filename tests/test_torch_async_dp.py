@@ -22,13 +22,21 @@ on the CPU at the tiny size of ``tests/test_torch_async.py:async_cfg``:
     are not held leaf against leaf);
   - a crash in rank 1's mapper fails both processes, each with rank 1's
     error, in bounded time.
+
+The JAX runs go in a child process with a time limit of its own
+(``JAX_DP_TIMEOUT_S``): a hang there fails this module's JAX tests alone,
+not the whole suite at its time limit.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
+import subprocess
+import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -49,6 +57,24 @@ ASYNC_TINY = mh.TINY_SLAM + [
     "mapping.color_refine=False", "tracking.iters=2", "meshing.resolution=16",
 ]
 needs_sockets = pytest.mark.skipif(not _sockets_allowed(), reason="no local sockets")
+TESTS = os.path.dirname(os.path.abspath(__file__))
+JAX_DP_TIMEOUT_S = 600  # the three JAX runs take about 30 s, most of it compiling
+# the child of the jax_dp fixture: JAX on 8 virtual CPU devices as tests/conftest.py sets it up
+JAX_DP_CHILD = """
+import os, sys
+os.environ["JAX_PLATFORMS"] = "cpu"
+flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in flags:
+    os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_compilation_cache_dir", os.path.join(sys.argv[1], ".jax_cache"))
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+sys.path.insert(0, sys.argv[1])
+import test_torch_async_dp
+test_torch_async_dp.jax_dp_child(sys.argv[2])
+"""
 
 
 def spec(work, name: str, sync: str, gt_camera: bool, dp: bool = True, **kw):
@@ -224,15 +250,43 @@ def test_shared_dp_loose_tracking_ranks_bit_equal(dp_runs):
     assert reads == sorted(reads) and reads[0] == 0
 
 
+def jax_dp_child(work: str) -> None:
+    """The JAX package's async runs on a shared mesh of 2 devices, in the
+    ``jax_dp`` fixture's child: each run's ``metrics.jsonl`` records, its
+    config, and its mesh's layout, pickled to ``<work>/jax_dp.pkl``."""
+    torch.set_num_threads(1)
+    shared = {"enable": True, "n_devices": 2}
+    out = {}
+    for name, sync, gt in (("loose_dp", "loose", False), ("loose_dp_gt", "loose", True),
+                           ("free_dp_gt", "free", True)):
+        jslam, records = run_jax(async_cfg(sync, gt_camera=gt), os.path.join(work, name), parallel=shared)
+        out[name] = {"records": records, "cfg": jslam.cfg, "track_mesh_is_mesh": jslam.track_mesh is jslam.mesh,
+                     "n_devices": len(jslam.mesh.devices.flat), "kf_idx": list(jslam.keyframes.frame_idx)}
+    with open(os.path.join(work, "jax_dp.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 @pytest.fixture(scope="module")
 def jax_dp(tmp_path_factory):
-    """The JAX package's async runs on a shared mesh of 2 devices."""
-    torch.set_num_threads(1)
+    """The JAX package's async runs on a shared mesh of 2 devices, in a
+    child process bounded by JAX_DP_TIMEOUT_S: {name: (a summary of the
+    JAX system (its ``cfg``, whether the tracker's mesh is the mapper's, the
+    mesh's device count, its keyframes), its ``metrics.jsonl`` records)}."""
     work = tmp_path_factory.mktemp("jax_dp")
-    shared = {"enable": True, "n_devices": 2}
-    return {name: run_jax(async_cfg(sync, gt_camera=gt), work / name, parallel=shared)
-            for name, sync, gt in (("loose_dp", "loose", False), ("loose_dp_gt", "loose", True),
-                                   ("free_dp_gt", "free", True))}
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    try:
+        proc = subprocess.run([sys.executable, "-c", JAX_DP_CHILD, TESTS, str(work)], cwd=os.path.dirname(TESTS),
+                              env=env, capture_output=True, text=True, timeout=JAX_DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"the JAX dp runs did not end within {JAX_DP_TIMEOUT_S} s") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"the JAX dp runs failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    with open(work / "jax_dp.pkl", "rb") as f:
+        runs = pickle.load(f)
+    return {name: (types.SimpleNamespace(cfg=r["cfg"], track_mesh_is_mesh=r["track_mesh_is_mesh"],
+                                         n_devices=r["n_devices"],
+                                         keyframes=types.SimpleNamespace(frame_idx=r["kf_idx"])), r["records"])
+            for name, r in runs.items()}
 
 
 @pytest.mark.parametrize("name", ["loose_dp", "loose_dp_gt", "free_dp_gt"])
@@ -240,7 +294,7 @@ def test_shared_dp_schedule_matches_jax(dp_runs, jax_dp, name):
     work, res = dp_runs
     records = [json.loads(ln) for ln in open(os.path.join(str(work / name), "metrics.jsonl"))]
     jslam, jrecords = jax_dp[name]
-    assert jslam.track_mesh is jslam.mesh and len(jslam.mesh.devices.flat) == 2
+    assert jslam.track_mesh_is_mesh and jslam.n_devices == 2
     assert schedule(records) == schedule(jrecords)
     maps, n_map, n_track, n_pub = schedule(records)
     assert maps == [0, 5, N_FRAMES - 1] and n_track == N_FRAMES - 1 and n_pub == n_map

@@ -42,7 +42,7 @@ RECORD_KEYS = {
     "workload", "grid_vjp", "rays_per_cycle", "cycle_s_median", "rep_times_s", "rays_per_s", "rays_per_s_min",
     "rays_per_s_max", "map_s_median", "track_s_median", "build_s", "warmup_s", "samples_per_ray", "tsdf_dims",
     "tsdf_voxels", "grids", "device_peak_mem_gb", "device_mem_held_on_entry_gb", "launches_per_cycle",
-    "losses_finite", "last_losses",
+    "losses_finite", "last_losses", "step_mode", "graphed", "graph_pool_gb", "graphs",
     "_flops_fwd_per_point",
 }
 
@@ -142,8 +142,12 @@ def test_cycle_counts_and_flops_match_jax(name, monkeypatch):
 
 
 def test_measure_workload_tiny_on_cpu(tiny):
-    rec = bench.measure_workload(tiny, reps=2, device="cpu")
+    recs = bench.measure_workload(tiny, reps=2, device="cpu")
+    assert list(recs) == ["eager"]  # no graphs on the CPU
+    rec = recs["eager"]
     assert set(rec) == RECORD_KEYS
+    assert rec["step_mode"] == "eager" and not rec["graphed"] and rec["graph_pool_gb"] is None
+    assert rec["graphs"]["captures"] == 0 and rec["graphs"]["eager_iters"] > 0
     assert rec["losses_finite"] and all(np.isfinite(v) for v in rec["last_losses"].values())
     assert rec["last_losses"]["map"] > 0  # the rays reach the scene
     assert rec["rays_per_cycle"] == 40 * 5 + 5 * 20 * 2
@@ -167,6 +171,7 @@ def test_main_prints_one_json_line_with_the_scannet_record(tiny, monkeypatch, ca
                 "assumed_peak_flops", "device_peak_mem_gb", "device_mem_held_on_entry_gb", "launches_per_cycle"):
         assert key in payload
     assert payload["value"] == payload["median"] and payload["vs_baseline"] == payload["value"] / 12_000.0
+    assert payload["step_mode"] == "eager" and payload["graphed"] is False and "graph" not in payload
     assert payload["assumed_peak_flops"] == 67e12 and payload["device_kind"] == "cpu"
     assert payload["point_evals_per_s"] == pytest.approx(payload["value"] * 48)
     assert payload["est_model_flops_per_s"] == pytest.approx(3 * payload["flops_fwd_per_point"] * payload["value"] * 48)
