@@ -109,10 +109,10 @@ class CudaKernel:
 
 def port_kernels() -> List[CudaKernel]:
     """Every hand-written kernel of the port: K1 (halo fold), K2 (decoder
-    MLP), K3 (cell stencil)."""
-    from attentive_dfprior_tpu_torch.ops.cuda import decoder_kernel, halo_fold_kernel, stencil_kernel
+    MLP), K3 (cell stencil), K4 (the ordered cell scatter)."""
+    from attentive_dfprior_tpu_torch.ops.cuda import cell_scatter_kernel, decoder_kernel, halo_fold_kernel, stencil_kernel
 
-    return [halo_fold_kernel.KERNEL, decoder_kernel.KERNEL, stencil_kernel.KERNEL]
+    return [halo_fold_kernel.KERNEL, decoder_kernel.KERNEL, stencil_kernel.KERNEL, cell_scatter_kernel.KERNEL]
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:

@@ -22,7 +22,9 @@ package reads ``DFPRIOR_TRILINEAR_VJP`` instead):
   - ``xla``: plain autodiff of the gathers.
 
 The cell scatter (``_cell_scatter``) writes each point's 8 weighted corner
-updates into one 8C-wide row of its floor cell with ``index_add_``. Each
+updates into one 8C-wide row of its floor cell, the rows of a cell summed
+in a fixed order (K4, ``ops/cuda/cell_scatter_kernel.py``: no atomics, so
+a run repeats bit for bit). Each
 custom gradient computes the point gradient (autodiff of the gathers, grid
 detached) only when the points need one (the tracker, bundle adjustment),
 and the grid gradient only when the grid needs one (the mapper). A kernel
@@ -44,6 +46,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from attentive_dfprior_tpu_torch.ops.cuda.cell_scatter_kernel import cell_scatter_sum
 from attentive_dfprior_tpu_torch.ops.cuda.halo_fold_kernel import cell_fold_halo, cell_fold_plain
 from attentive_dfprior_tpu_torch.ops.cuda.stencil_kernel import cell_stencil
 from attentive_dfprior_tpu_torch.utils.device import device_constant
@@ -99,10 +102,10 @@ def trilinear_sample(grid: torch.Tensor, p_norm: torch.Tensor) -> torch.Tensor:
     return c0 * (1 - fx) + c1 * fx
 
 
-def _cell_scatter(grid_shape, p_norm: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
-    """Scatter each point's 8 weighted corner updates (corner k = 4cx + 2cy
-    + cz, the order of trilinear_sample) into one (8C)-wide row of the cell
-    buffer, cell = floor corner i0. Returns (nvox, 8C)."""
+def _cell_updates(grid_shape, p_norm: torch.Tensor, ct: torch.Tensor):
+    """Each point's floor cell i0 as a linear voxel id (N,) and its 8
+    weighted corner updates (corner k = 4cx + 2cy + cz, the order of
+    trilinear_sample) as one (N, 8C) row."""
     nx, ny, nz, C = grid_shape
     n_pts = p_norm.shape[0]
     i0, _, f = _floor_cell((nx, ny, nz), p_norm)
@@ -115,8 +118,16 @@ def _cell_scatter(grid_shape, p_norm: torch.Tensor, ct: torch.Tensor) -> torch.T
     w = torch.stack(ws, dim=1)  # (N, 8)
     upd = (w[:, :, None] * ct[:, None, :]).reshape(n_pts, 8 * C)
     cell = (i0[:, 0] * ny + i0[:, 1]) * nz + i0[:, 2]
-    out = torch.zeros((nx * ny * nz, 8 * C), dtype=upd.dtype, device=upd.device)
-    return out.index_add_(0, cell, upd)
+    return cell, upd
+
+
+def _cell_scatter(grid_shape, p_norm: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """Scatter each point's 8 weighted corner updates into one (8C)-wide
+    row of the cell buffer, cell = floor corner i0, summed in a fixed order
+    (K4, ``cell_scatter_sum``). Returns (nvox, 8C)."""
+    nx, ny, nz, _ = grid_shape
+    cell, upd = _cell_updates(grid_shape, p_norm, ct)
+    return cell_scatter_sum(nx * ny * nz, cell, upd)
 
 
 def _corner_indices_weights(grid_shape, p_norm: torch.Tensor):

@@ -544,7 +544,9 @@ class SLAMSystem:
         """The tracker's pixel draws: the async run's own, else the shared one."""
         return self.generator if self._track_generator is None else self._track_generator
 
-    def _track_frame(self, idx, color, depth, gt_c2w, params=None):
+    def _track_frame(self, idx, color, depth, gt_c2w, params=None, read=None):
+        """Track frame ``idx`` on ``params`` (default: the scene); ``read``:
+        the published map those are a snapshot of, logged with the frame."""
         t = self.tracker
         with self.profiler.phase("track", rays=0 if t.gt_camera else t.tracking_pixels * t.num_cam_iters):
             c2w, loss = t.track(
@@ -555,7 +557,8 @@ class SLAMSystem:
         self.estimate_c2w_list[idx] = c2w
         if self.verbose:
             print(f"Tracking frame {idx}  loss={loss:.3f}")
-        self._log_metrics({"event": "track", "idx": int(idx), "loss": float(loss)})
+        self._log_metrics({"event": "track", "idx": int(idx), "loss": float(loss),
+                           **({} if read is None else {"read": int(read)})})
 
     # ------------------------------------------------------------------
 
@@ -700,8 +703,8 @@ class SLAMSystem:
                     if sync == "loose":
                         gate(lambda: mapper.last_mapped >= idx - max_lag)
                     with grant("track", idx, lambda: {"read": mapper.published_idx}) as rec:
-                        snap = mapper.snapshot(rec["read"] if sched is not None else None)
-                        self._track_frame(idx, color, depth, gt_c2w, params=snap)
+                        snap = mapper.snapshot(rec["read"])
+                        self._track_frame(idx, color, depth, gt_c2w, params=snap, read=rec["read"])
                     if not np.isfinite(gt_c2w).all():
                         continue
                     if idx % self.every_frame == 0 or idx == n - 1:

@@ -188,8 +188,7 @@ def mapping_worker(spec) -> Dict[str, Any]:
 def slam_worker(spec) -> Dict[str, Any]:
     """``SLAMSystem.run`` on ``spec["config"]`` with ``spec["overrides"]``
     (``--set`` syntax) to ``spec["end_idx"]``, on the group when there is
-    one; under deterministic algorithms with ``spec["deterministic"]``.
-    ``spec["sync"]`` sets ``sync_method``, and ``spec["split"]`` ({map: k,
+    one. ``spec["sync"]`` sets ``sync_method``, and ``spec["split"]`` ({map: k,
     track: m}) ``parallel.split``. With ``spec["perturb_ulp"]`` every element
     of the feature grids is moved one ulp up (``torch.nextafter``) before the
     run (the witness of ``compare_slam``). With ``spec["crash_rank"]`` that
@@ -207,8 +206,6 @@ def slam_worker(spec) -> Dict[str, Any]:
     from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
     from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 
-    if spec.get("deterministic"):
-        torch.use_deterministic_algorithms(True, warn_only=True)
     t0 = time.perf_counter()
     _join(spec)
     rank = dist.get_rank() if dist.is_initialized() else 0

@@ -28,6 +28,10 @@ prior of 196 M voxels, five 680x1200 frames; 1000 rays x 48 samples =
     ``cellgrad_total_high``, ``cellgrad_scatter_high``,
     ``cellgrad_stencil_high`` (transpose + 8 slab adds) and
     ``cellgrad_bitfold_high`` (the plain fold);
+  - the cell scatter's sum alone on the high grid's (nvox, 8C) buffer:
+    ``cell_scatter_atomic`` (``index_add_``, on the card atomic adds in
+    the order the threads arrive) and ``cell_scatter_ordered`` (K4,
+    ``ops/cuda/cell_scatter_kernel.py``, what the grid gradients run);
   - ``tsdf_sample`` (the prior at 48,000 points) and ``mlp_low_fwd`` (the
     low decoder's plain MLP at 48,000 points).
 
@@ -50,7 +54,9 @@ wide-Z-row layout of the prior (``attentive_dfprior_tpu/ops/grid_sample.py``
 (``ops/grid_sample.py:trilinear_sample_tsdf``) and has no second layout.
 The JAX ``full_iter_color`` runs the ``bitfold`` gradient; this one runs
 the production ``halo``. Added: the ``scatter_bwd_pallas_*`` rows, K3's
-path. Runs on the card unless ``--device cpu`` is given.
+path, and the two ``cell_scatter_*`` rows. ``profile(workload=, rays=)``
+takes another of ``tools/bench.py``'s workloads and ray count. Runs on the
+card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ def make_rows(device: torch.device, workload: str = "replica", rays: int = RAYS)
     from attentive_dfprior_tpu_torch.models.decoders import mlp_decoder_forward, sample_tsdf
     from attentive_dfprior_tpu_torch.ops import grid_sample as gs
     from attentive_dfprior_tpu_torch.ops.adam import adam_init, adam_update
+    from attentive_dfprior_tpu_torch.ops.cuda.cell_scatter_kernel import cell_scatter_sum
     from attentive_dfprior_tpu_torch.ops.cuda.halo_fold_kernel import cell_fold_plain
     from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, build_lr_tree, mapping_loss_fn, mapping_stage
     from attentive_dfprior_tpu_torch.tools import bench
@@ -195,6 +202,12 @@ def make_rows(device: torch.device, workload: str = "replica", rays: int = RAYS)
     rows["cellgrad_scatter_high"] = repeat(lambda: gs._cell_scatter(gshape, pn, ctg))
     rows["cellgrad_stencil_high"] = repeat(lambda: gs._corner_slab_sum(gshape, cells))
     rows["cellgrad_bitfold_high"] = repeat(lambda: cell_fold_plain(gshape, cells))
+    # the cell scatter's sum alone, on the high grid's cell buffer: the atomic
+    # ``index_add_`` (on the card) against K4, the ordered sum every grid gradient runs
+    cell, upd = gs._cell_updates(gshape, pn, ctg)
+    rows["cell_scatter_atomic"] = repeat(
+        lambda: torch.zeros((nvox, upd.shape[1]), device=device).index_add_(0, cell, upd))
+    rows["cell_scatter_ordered"] = repeat(lambda: cell_scatter_sum(nvox, cell, upd))
 
     def tsdf_sample():
         with torch.no_grad():

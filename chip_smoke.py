@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-5, 7, 10, 12, 13, 15, 16, 17 and 19, one card
+    python3 chip_smoke.py                # phases 1-7, 10, 12, 13, 15, 16, 17 and 19, one card
     python3 chip_smoke.py --phases 1,2   # build + kernel checks only
     python3 chip_smoke.py --phases 1,8   # the room.yaml quality run
     python3 chip_smoke.py --phases 1,9   # the room_tracking.yaml quality run
@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases 1,17  # the harnesses alone
     python3 chip_smoke.py --phases 1,18  # the tracking ablation (two variants, 16 frames)
     python3 chip_smoke.py --phases 1,19  # graphed against eager, torch.equal
+    python3 chip_smoke.py --phases 1,20  # phase 6's runs under torch.use_deterministic_algorithms
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
@@ -24,7 +25,11 @@ Phases (each failure exits non-zero):
      shapes and at the main path's shapes, with CUDA-event timings; K3
      also against K1; ``ops/compositing.py:cumprod_positive`` (the
      capturable transmittance product) ``torch.equal`` to ``torch.cumprod``,
-     values and gradients, at the main path's sample shapes;
+     values and gradients, at the main path's sample shapes; K4, the
+     ordered cell scatter (the start of every grid gradient), ``torch.equal``
+     to its plain version on the card and on the CPU, at odd shapes and at
+     ray-shaped points of room0's colour stage (8C and the pair's 16C) and
+     ScanNet's 5000 rays, the atomic ``index_add_`` printed beside;
   3. the room0-shape SLAM cycle (``tools/bench.py``'s replica workload,
      from its builder) under the ``halo`` grid gradient (K1) and the
      ``pallas`` one (K3), each with its iterations replayed as CUDA graphs
@@ -50,9 +55,13 @@ Phases (each failure exits non-zero):
      the sensor depth for both, and the gap between the two renders; (b)
      the same two renders with ``rendering.N_importance=16`` (the
      resampled second pass through the same decoder path), same gate;
-  6. (only on request) determinism: frame 0's mapping run twice with the
-     default kernels and twice under ``torch.use_deterministic_algorithms``,
-     compared bit for bit;
+  6. determinism: frame 0's map of room_tracking.yaml (its three stages at
+     500 of the config's 1000 iterations, the prior fused from every 10th
+     frame)
+     twice graphed and twice eager from one scene and generator state, with
+     PyTorch's default kernels: fails unless each pair's per-iteration
+     losses and final scene leaves are ``torch.equal``; graphed against
+     eager printed;
   7. the Mesher: ``SLAMSystem.get_mesh`` on phase 4's map (K2 on the path),
      then once more with the plain MLP: field-query and host seconds, and
      accuracy / completion / ratio against the synthetic GT mesh culled to
@@ -123,8 +132,8 @@ Phases (each failure exits non-zero):
      loop closure as shipped, mapping at 100 / 20 iterations, the final
      refine cut to 20 iterations a frame, ``parallel.enable=True``, as two
      ranks on ``cuda:0`` over gloo, as one process, and as a witness (the
-     one process with every grid element moved by one ulp), at once,
-     under deterministic algorithms: the ranks' final scenes and
+     one process with every grid element moved by one ulp), at once: the
+     ranks' final scenes and
      trajectories equal, finite losses, K1 in each rank, frame 0's first
      30 map losses within 1e-3 relative of the single run, and frame 0's
      map losses, the tracked and the refined trajectory each within
@@ -142,8 +151,7 @@ Phases (each failure exits non-zero):
      first, replays an order its timing would not give); (b)
      ``parallel.split: {map: 1, track: 1}`` under loose on frames 0..15 as
      phase 4 runs them (loop closure and the final refine as shipped, no
-     panels; the prior built once in the parent), under deterministic
-     algorithms: publishes, K1 on the map
+     panels; the prior built once in the parent): publishes, K1 on the map
      rank, finite losses, the track rank's final scene (the last broadcast)
      equal to the map rank's, the trajectory within 20 cm of phase 4's
      strict run; unaligned and aligned ATE printed;
@@ -157,7 +165,9 @@ Phases (each failure exits non-zero):
      (b) ``tools/profile_mapping.py``, every row, ``full_iter_color``
      graphed and eager in turns, 4 reps: fails on a non-finite row, unless
      K1 runs in the ``halo`` rows alone and K3 in the ``pallas`` rows
-     alone, or if the graphed iteration counts other launches; (c)
+     alone, or if the graphed iteration counts other launches; then the
+     two ``cell_scatter_*`` rows (the atomic ``index_add_`` and the ordered
+     sum) again at the ScanNet shape's 5000 rays; (c)
      ``tools/bench_scaling.py --devices 1 --pixels 1000,5000`` (a child, a
      world of one on NCCL) and its comm model's prediction for 2, 4 and 8
      H100s; fails on a non-finite loss or without K1;
@@ -171,13 +181,16 @@ Phases (each failure exits non-zero):
      and generator state: (a) frame 0's three stages and a BA window of
      frames 0-2 (F = 3), per-iteration losses, every final leaf and BA's
      poses; (b) frames 1-5 tracked from one map, poses and losses; all
-     ``torch.equal``; (c) K1's launches, replays counted, equal to eager's.
+     ``torch.equal``; (c) K1's launches, replays counted, equal to eager's;
+ 20. (only on request, not with phase 6) phase 6's four runs under
+     ``torch.use_deterministic_algorithms``, the cuBLAS workspace fixed for
+     the process (printed, no gate).
 
 Phases 15 and 16 run ray-axis dp over gloo, whose collectives a graph
 cannot capture: their ranks run eager steps, and their records say so.
 
-Every path (each timed variant of phase 3, phases 4, 5, 5(b), 7, 8, 9, 10,
-11, 12, 13(b), 14, 17(a), 17(b) and 18, each of phase 10(a)'s three runs,
+Every path (each timed variant of phase 3, phases 4, 5, 5(b), 6, 7, 8, 9,
+10, 11, 12, 13(b), 14, 17(a), 17(b) and 18, phase 20, each of phase 10(a)'s three runs,
 each of phase 19's two, and each of phase 15(b)'s four processes, phase
 16's and phase 17(c)'s, counted in its child process) runs with the launch
 counts set to 0 just before it and read just after (a graph replay adds
@@ -240,6 +253,7 @@ SPLIT_TRAJ_GATE_M = 0.20
 BENCH_WORKLOAD, BENCH_REPS = "scannet", 4  # graphed and eager in turns
 PROFILE_ITERS = 5  # phase 17(b): iterations a timing (10 in the tool's default; cut for time)
 PROFILE_REPS = 4  # phase 17(b): timings a row, the graphed and eager iterations in turns
+SCANNET_RAYS = 5000  # phase 17(b): the ScanNet shape's rays a mapping iteration, for the cell_scatter rows
 # phase 17(b): the rows whose grid gradient runs K1 (K3: the scatter_bwd_pallas_* rows)
 PROFILE_HALO_ROWS = ("full_iter_color", "full_iter_color_eager", "fwd_bwd_color", "scatter_bwd_grid_low", "scatter_bwd_grid_high",
                      "scatter_bwd_grid_color", "scatter_bwd_pair_highcolor")
@@ -250,6 +264,10 @@ GRAPH_EQUAL_SET = ["mapping.iters_first=100", "tsdf.space=10"]
 GRAPH_EQUAL_BA_WINDOW = (0, 1, 2)  # frames of the BA window (F = 3; mapped as frame 5, anchored at frame 0)
 GRAPH_EQUAL_TRACK = range(1, 6)  # phase 19(b): frames 1-5 tracked from one map
 GRAPH_CHILD_TAG = "GRAPH_EQUAL "  # the prefix of phase 19's result line in the child's output
+# phases 6 and 20: frame 0's map, twice in each step mode; the prior fused from every 10th frame, the map cut
+# from 1000 iterations to 500 to keep the default run near 1000 s (at 1000: 110.6 s for the four runs)
+DET_SET = ["tsdf.space=10", "mapping.iters_first=500"]
+K4_TIMED = "room0 colour stage, 8C"  # phase 2: K4's case in the kernels line (K1's shape and width)
 
 
 def fail(msg: str) -> None:
@@ -478,6 +496,73 @@ def phase_kernels(torch, dev):
                  f"{float((ref - out).abs().max()):.3e}, gradients {float((gx - gy).abs().max()):.3e}")
     print("cumprod_positive: values and gradients torch.equal to torch.cumprod at (200 | 1000 | 5000, 49)",
           flush=True)
+
+    # ---- K4, the ordered cell scatter: bit-identical to its plain version ----
+    # on the card (whose sequential sums are index_put_'s) and on the CPU
+    # (index_add_'s), at odd shapes (a partial chunk, widths off the 256-column
+    # tile, one index taking every row: a run over many chunks) and at the
+    # main path's: points along rays from a few cameras, as the renderer
+    # places them (every ray's first samples share its camera's cells), into
+    # room0's high grid at the colour stage (5 frames x 200 rays x 48 samples;
+    # 8C and the high + colour pair's 16C) and ScanNet's (10 x 500 x 48); the
+    # atomic index_add_ printed beside (the library call: zeros + index_add_)
+    from attentive_dfprior_tpu_torch.ops import grid_sample as gs
+    from attentive_dfprior_tpu_torch.ops.cuda import cell_scatter_kernel as K4
+
+    def ray_points(cams, rays):
+        """(cams * rays * 48, 3) normalized points: 32 samples from near the
+        camera to past the grid, 16 around a surface depth a ray."""
+        org = torch.rand((cams, 1, 1, 3), generator=g, device=dev) * 1.2 - 0.6
+        d = torch.randn((cams, rays, 1, 3), generator=g, device=dev)
+        d = d / d.norm(dim=-1, keepdim=True)
+        surf = torch.rand((cams, rays, 1), generator=g, device=dev) * 0.9 + 0.3
+        t = torch.cat([torch.linspace(0.02, 1.5, 32, device=dev).expand(cams, rays, 32),
+                       surf + torch.linspace(-0.05, 0.05, 16, device=dev)], dim=-1)
+        return (org + d * t[..., None]).reshape(-1, 3)
+
+    k4 = {"max_abs_err": 0.0}
+    cases = [("odd, partial chunk", 200, torch.randint(0, 200, (1000,), generator=g, device=dev), 24),
+             ("one row", 7, torch.full((1,), 3, device=dev), 520),
+             ("33 rows", 5, torch.randint(0, 5, (33,), generator=g, device=dev), 256),
+             ("every row into one index", 3, torch.full((5000,), 1, device=dev), 520)]
+    for label, shape, cams, rays in (("room0 colour stage, 8C", (74, 56, 44, 32), 5, 200),
+                                     ("room0 colour stage, pair 16C", (74, 56, 44, 64), 5, 200),
+                                     ("ScanNet, 8C", (81, 84, 46, 32), 10, 500)):
+        p = ray_points(cams, rays)
+        cell, _ = gs._cell_updates(shape[:3] + (1,), p, torch.zeros((len(p), 1), device=dev))
+        cases.append((label, shape, cell, 8 * shape[3]))
+    for label, where, idx, width in cases:
+        nrows = where if isinstance(where, int) else where[0] * where[1] * where[2]
+        rows = torch.randn((len(idx), width), generator=g, device=dev)
+        out = K4.cell_scatter_sum(nrows, idx, rows)
+        plain = K4.cell_scatter_plain(nrows, idx, rows)
+        cpu = K4.cell_scatter_plain(nrows, idx.cpu(), rows.cpu())
+        atomic = torch.zeros_like(out).index_add_(0, idx, rows)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        k4["max_abs_err"] = max(k4["max_abs_err"], err)
+        if not (torch.equal(out, plain) and torch.equal(out.cpu(), cpu)):
+            fail(f"K4 cell scatter differs from its plain version at {label}: max abs err {err}, on the CPU "
+                 f"{float((out.cpu() - cpu).abs().max())}")
+        counts = torch.bincount(idx, minlength=nrows)
+        line = (f"K4 {label}: {len(idx)} rows x {width} into {nrows} ({int((counts > 0).sum())} taken, the most "
+                f"{int(counts.max())} into one): torch.equal to its plain version on the card and on the CPU ok; "
+                f"the atomic index_add_ torch.equal to it {torch.equal(atomic, out)} (max abs diff "
+                f"{float((atomic - out).abs().max()):.3e})")
+        if not isinstance(where, int):
+            ms = time_ms(torch, lambda: K4.cell_scatter_sum(nrows, idx, rows))
+            # the plain version sorts and sums through index_put_ twice: 16-95 ms a call, so fewer reps
+            plain_ms = time_ms(torch, lambda: K4.cell_scatter_plain(nrows, idx, rows), reps=5, inner=2, warmup=1)
+            library_ms = time_ms(torch, lambda: torch.zeros_like(out).index_add_(0, idx, rows))
+            put_ms = time_ms(torch, lambda: K4.sequential_sum(nrows, idx, rows))  # index_put_, sorted, in order
+            nbytes = len(idx) * (width * 4 + 8) + nrows * width * 4
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (zeros + index_add_) "
+                     f"{library_ms:.4f} ms, sorted index_put_ {put_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                     f"({nbytes / 1e6:.1f} MB)")
+            k4[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms)
+        print(line, flush=True)
+    rec["K4"] = k4
     return rec
 
 
@@ -1080,6 +1165,11 @@ def phase_entry_loose(torch, dev, strict):
         if r["event"] in ("map", "publish", "publish_skip"):
             print(f"loose {r['event']} frame {r['idx']}" + (f": losses {json.dumps(r['losses'])}" if r["event"] == "map" else ""))
     _, _, err = report_run(slam, out_dir, wall, "loose", records)
+    reads = {}
+    for r in records:
+        if r["event"] == "track":
+            reads.setdefault(r["read"], []).append(r["idx"])
+    print(f"loose schedule, the frames tracked on each published map: {json.dumps(reads)}")
     median = track_interval_median(records)
     run_s, loop_s = slam.profiler.seconds["run"], slam.timings["loop"]
     print(f"loose (refine {LOOSE_REFINE_ITERS} iterations a frame): {wall:.1f} s ({run_s:.1f} s in run(), "
@@ -1240,74 +1330,88 @@ def phase_room_tracking(torch, dev, sync: str = "strict"):
         fail(f"room_tracking.yaml: aligned ATE {100 * ate:.3f} cm above {ATE_GATE_CM} cm")
 
 
-def phase_determinism(torch, dev):
-    """Frame 0's mapping of room_tracking.yaml (all 1000 iterations), twice
-    with PyTorch's default kernels and twice under
-    ``torch.use_deterministic_algorithms``, from the same initial scene and
-    pixel draws: whether the per-iteration losses and the final parameters
-    of the two runs of each pair are bit-identical, and where they part.
-    The prior fuses every 10th frame (``tsdf.space=10``), not every frame,
-    to keep the set-up short: the question is the same for any prior."""
+def phase_determinism(torch, dev, deterministic: bool = False) -> None:
+    """Phase 6: frame 0's map of room_tracking.yaml (three stages, DET_SET)
+    from one initial scene and generator state, in each step mode twice,
+    each run with a fresh ``StepGraphs`` (a graphed run captures anew):
+    fails unless each pair's per-iteration losses and final scene leaves
+    are ``torch.equal``; graphed against eager is printed. With
+    ``deterministic`` (phase 20, on request) the same four runs under
+    ``torch.use_deterministic_algorithms``, printed, not gated. The prior
+    fuses every 10th frame, not every frame, to keep the set-up short: the
+    question is the same for any prior."""
     import warnings
 
     from attentive_dfprior_tpu_torch.config import default_config_path, load_config
     from attentive_dfprior_tpu_torch.run import apply_overrides
     from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
+    from attentive_dfprior_tpu_torch.utils.step_graph import StepGraphs
     from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 
+    label = "determinism (deterministic algorithms)" if deterministic else "determinism"
     cfg = load_config(ROOM_TRACKING, default_config_path())
-    apply_overrides(cfg, ["tsdf.space=10"])
+    apply_overrides(cfg, DET_SET)
     cfg["seed"] = 0
     t0 = time.perf_counter()
     slam = SLAMSystem(cfg, output=tempfile.mkdtemp(prefix="chip_smoke_det_"), device=dev)
     _, color, depth, gt = slam.dataset[0]
-    print(f"determinism: system and prior built in {time.perf_counter() - t0:.1f} s")
+    print(f"{label}: system and prior built in {time.perf_counter() - t0:.1f} s")
     init = [t.detach().clone() for t in tree_leaves(slam.params)]
     gen_state = slam.generator.get_state()
+    m = slam.mapper
 
-    def map_frame0():
+    def map_frame0(mode):
         """Frame 0's mapping as ``SLAMSystem.run`` does it, from the saved
-        start: ({stage: per-iteration losses}, final scene leaves)."""
+        start: (per-iteration losses, final scene leaves, seconds, the
+        mapper graphs' counts)."""
+        m.graphs = StepGraphs(mode, dev)
         with torch.no_grad():
             for t, t_init in zip(tree_leaves(slam.params), init):
                 t.copy_(t_init)
         slam.generator.set_state(gen_state)
-        _, _, _, stage_losses = slam.mapper.optimize_map(
-            slam.params, slam.mapper.iters_first, slam.mapper.lr_first_factor, 0,
-            slam._to_device(color)[None], slam._to_device(depth)[None], np.asarray(gt)[None],
-            generator=slam.generator, cur_depth_np=np.asarray(depth), cur_c2w_np=gt,
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, stage_losses = m.optimize_map(
+            slam.params, m.iters_first, m.lr_first_factor, 0, slam._to_device(color)[None],
+            slam._to_device(depth)[None], np.asarray(gt)[None], generator=slam.generator,
+            cur_depth_np=np.asarray(depth), cur_c2w_np=gt,
         )
-        return ({k: v.cpu() for k, v in stage_losses.items()},
-                [t.detach().clone() for t in tree_leaves(slam.params)])
+        torch.cuda.synchronize()
+        return (torch.cat(list(stage_losses.values())).cpu(), [t.detach().clone() for t in tree_leaves(slam.params)],
+                time.perf_counter() - t0, m.graphs.stats())
 
-    for deterministic in (False, True):
-        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    def compare(a, b):
+        """(losses equal, first differing iteration or None, leaves equal, max abs leaf difference)."""
+        diff = (a[0] != b[0]).nonzero()
+        leaves = all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+        return (torch.equal(a[0], b[0]), int(diff[0]) if len(diff) else None, leaves,
+                max(float((x - y).abs().max()) for x, y in zip(a[1], b[1])))
+
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            (sa, pa), (sb, pb) = map_frame0(), map_frame0()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            runs = {mode: (map_frame0(mode), map_frame0(mode)) for mode in ("graph", "eager")}
+    finally:
         torch.use_deterministic_algorithms(False)
-        la, lb = torch.cat(list(sa.values())), torch.cat(list(sb.values()))
-        if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
-            fail("determinism: non-finite loss")
-        diff = (la != lb).nonzero()
-        first = int(diff[0]) if len(diff) else None
-        param_err = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
-        mode = "deterministic" if deterministic else "default"
-        print(f"determinism {mode}: {wall:.1f} s for 2 runs of {len(la)} iterations; losses bit-identical "
-              f"{first is None} (first differing iteration {first}); final params bit-identical "
-              f"{param_err == 0.0} (max abs diff {param_err:.3e})")
-        if first is not None:
-            at = [first, first + 1, first + 10]
-            print(f"determinism {mode}: losses at iterations {at}: "
-                  f"A {[float(la[i]) for i in at if i < len(la)]}, B {[float(lb[i]) for i in at if i < len(lb)]}")
-        print(f"determinism {mode}: last loss of each stage: "
-              f"A {json.dumps({k: float(v[-1]) for k, v in sa.items()})}, "
-              f"B {json.dumps({k: float(v[-1]) for k, v in sb.items()})}")
-        for msg in sorted({str(w.message).splitlines()[0][:200] for w in caught}):
-            print(f"determinism {mode}: warning: {msg}")
+    bad = []
+    for mode, (ra, rb) in runs.items():
+        if not (torch.isfinite(ra[0]).all() and torch.isfinite(rb[0]).all()):
+            fail(f"{label}: non-finite loss")
+        losses_eq, first, leaves_eq, leaf_diff = compare(ra, rb)
+        print(f"{label} {mode}: {ra[2]:.1f} + {rb[2]:.1f} s for 2 runs of {len(ra[0])} iterations "
+              f"({' '.join(DET_SET)}); losses torch.equal {losses_eq} (first differing iteration {first}); "
+              f"{len(ra[1])} final leaves torch.equal {leaves_eq} (max abs diff {leaf_diff:.3e}); last loss A "
+              f"{float(ra[0][-1]):.6f}, B {float(rb[0][-1]):.6f}; mapper graphs {json.dumps(ra[3])}")
+        if not (losses_eq and leaves_eq):
+            bad.append(mode)
+    losses_eq, first, leaves_eq, leaf_diff = compare(runs["graph"][0], runs["eager"][0])
+    print(f"{label} graph against eager: losses torch.equal {losses_eq} (first differing iteration {first}); "
+          f"final leaves torch.equal {leaves_eq} (max abs diff {leaf_diff:.3e})")
+    for msg in sorted({str(w.message).splitlines()[0][:200] for w in caught}):
+        print(f"{label}: warning: {msg}")
+    if bad and not deterministic:
+        fail(f"determinism: two default runs of frame 0's map differ ({', '.join(bad)})")
 
 
 def fresh_workdir(prefix: str, configs_dir: str) -> str:
@@ -1710,8 +1814,8 @@ def phase_dp(torch, paths) -> None:
     closure as shipped) through ``SLAMSystem.run``, as two ranks on
     ``cuda:0`` joined over gloo (NCCL refuses two ranks on one device), as
     one process, and as the witness (the one process with every grid
-    element moved one ulp), all four children at once under deterministic
-    algorithms (``tools/multihost_smoke.py:slam_worker``). Fails unless the
+    element moved one ulp), all four children at once
+    (``tools/multihost_smoke.py:slam_worker``). Fails unless the
     ranks' final scene leaves and trajectories are equal, every loss is
     finite, K1 ran in each rank, and ``multihost_smoke.compare_slam``'s
     gates hold: frame 0's first MAP_AGREE_ITERS map losses within
@@ -1736,7 +1840,7 @@ def phase_dp(torch, paths) -> None:
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     rec = os.path.join(work, "slam")
     spec = dict(config=os.path.relpath(ROOM_TRACKING, REPO), overrides=DP_SET, end_idx=DP_END, device="cuda:0",
-                backend="gloo", deterministic=True, threads=1)  # one torch CPU thread a child, as phase 16's
+                backend="gloo", threads=1)  # one torch CPU thread a child, as phase 16's
     env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # deterministic cuBLAS
     t0 = time.perf_counter()
     started = {
@@ -1779,7 +1883,7 @@ def phase_dp(torch, paths) -> None:
             gaps.append(f"{float(q[0]):.1e}/{float(q.max()):.1e}")
         print(f"dp (b) {name} tracking losses, relative gap to the single run per tracked frame "
               f"(first iteration / max): " + " ".join(gaps))
-    print(f"dp (b) {' '.join(DP_SET)}, frames 0-{DP_END - 1}, gloo, deterministic: replicas equal "
+    print(f"dp (b) {' '.join(DP_SET)}, frames 0-{DP_END - 1}, gloo: replicas equal "
           f"{cmp['replicas_equal']} over {cmp['n_leaves']} leaves, finite {cmp['finite']}, unaligned ATE (mm) "
           f"{json.dumps(cmp['ate_vs_gt_mm'])}; {wall:.1f} s for the four children")
     print(f"dp (b) gates (dp's gap to the single run, the witness's, the limit): {json.dumps(cmp['gates'])}")
@@ -1820,7 +1924,7 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
     so it replays an order its own timing would not give). (b)
     ``parallel.split: {map: 1, track: 1}`` under ``loose`` on frames
     0..ENTRY_END - 1 as phase 4 runs them (loop closure and the
-    final refine as shipped; no panels), under deterministic algorithms, through
+    final refine as shipped; no panels), through
     ``tools/multihost_smoke.py:slam_worker``: fails without a publish,
     without K1 on the map rank, on a non-finite loss, when the track rank's
     final scene is not the map rank's (``compare_async``), or with the trajectory
@@ -1847,9 +1951,8 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
     # one torch CPU thread a child: four children's thread pools would oversubscribe the host's cores
     base = dict(config=os.path.relpath(ROOM_TRACKING, REPO), device="cuda:0", backend="gloo", threads=1)
     # (b) as phase 4 runs it, the refine at 100 iterations a frame as shipped (at phase 10(b)'s 20, one
-    # call of three parted 21.71 cm from phase 4, whose refine runs 100), under deterministic
-    # algorithms, so that the loose run's reading repeats from call to call (ROADMAP F2)
-    runs = {"split": (dict(base, overrides=[], end_idx=ENTRY_END, sync="loose", deterministic=True,
+    # call of three parted 21.71 cm from phase 4, whose refine runs 100)
+    runs = {"split": (dict(base, overrides=[], end_idx=ENTRY_END, sync="loose",
                            split={"map": 1, "track": 1}), 2)}
     if strict_entry is None:
         runs["strict_single"] = (dict(base, overrides=[], end_idx=ENTRY_END, sync="strict"), 0)
@@ -2025,6 +2128,16 @@ def phase_harnesses(torch, drive, paths) -> None:
                  f"K3 {'> 0' if pallas else '0'})")
     if rows["full_iter_color"]["launches_per_iter"] != rows["full_iter_color_eager"]["launches_per_iter"]:
         fail("profile full_iter_color: the replays count other launches than the eager iteration")
+    # the cell scatter's two rows again at the ScanNet shape's mapping rays, into its high grid
+    t0 = time.perf_counter()
+    rows = drive("profile_scatter_scannet", profile_mapping.profile, "cuda", PROFILE_ITERS, PROFILE_REPS,
+                 "cell_scatter", "scannet", SCANNET_RAYS)
+    for name, r in rows.items():
+        print(f"profile {name} (scannet, {SCANNET_RAYS} rays): {r['ms_per_iter']:.4f} ms/iter (reps {r['rep_ms']}), "
+              f"device {r['device_ms_per_iter']} ms/iter over {r['device_kernels_per_iter']} kernels/iter")
+        if not r["finite"]:
+            fail(f"profile {name} (scannet): non-finite output")
+    print(f"profile_mapping cell_scatter rows at the ScanNet shape: {time.perf_counter() - t0:.1f} s")
 
     # (c) dp scaling, a world of one
     t0 = time.perf_counter()
@@ -2065,8 +2178,8 @@ def phase_ablation(work: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,10,12,13,15,16,17,19",
-                    help="comma-separated phases to run (6, 8, 9, 11, 14 and 18 only on request)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,10,12,13,15,16,17,19",
+                    help="comma-separated phases to run (8, 9, 11, 14, 18 and 20 only on request)")
     ap.add_argument("--async-equal-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--graph-equal-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2081,7 +2194,9 @@ def main() -> None:
         fail("phase 7 meshes phase 4's map: run it with phase 4")
     if 13 in phases and 12 not in phases:
         fail("phase 13 re-fuses and converts phase 12's map: run it with phase 12")
-    if 6 in phases:
+    if 20 in phases:
+        if 6 in phases:
+            fail("phase 20 fixes cuBLAS's workspace for the whole process: run it apart from phase 6")
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # deterministic cuBLAS
 
     import torch
@@ -2128,9 +2243,10 @@ def main() -> None:
     strict_entry = None
     if 4 in phases:
         slam, strict_entry = drive("entry", phase_entry, torch, dev)
-        if paths["entry"]["halo_fold"] <= 0 or paths["entry"]["decoder_mlp"] <= 0:
-            fail(f"the entry point launched K1 (halo fold) {paths['entry']['halo_fold']} times and K2 (decoder "
-                 f"MLP) {paths['entry']['decoder_mlp']} times (expected both > 0)")
+        if min(paths["entry"][k] for k in ("halo_fold", "decoder_mlp", "cell_scatter")) <= 0:
+            fail(f"the entry point launched K1 (halo fold) {paths['entry']['halo_fold']} times, K2 (decoder "
+                 f"MLP) {paths['entry']['decoder_mlp']} times and K4 (cell scatter) {paths['entry']['cell_scatter']} "
+                 f"times (expected each > 0)")
         done(4)
         if 5 in phases:
             drive("render", phase_render, torch, dev, slam)
@@ -2149,8 +2265,11 @@ def main() -> None:
         phase_graph_equal(paths)
         done(19)
     if 6 in phases:
-        phase_determinism(torch, dev)
+        drive("determinism", phase_determinism, torch, dev)
         done(6)
+    if 20 in phases:
+        drive("determinism_algorithms", phase_determinism, torch, dev, True)
+        done(20)
     if 8 in phases:
         drive("room_yaml", phase_room_yaml, torch, dev)
         done(8)
@@ -2211,7 +2330,7 @@ def main() -> None:
         def launches(name):
             return sum(p[name] for p in paths.values())
 
-        k1, k2, k3 = kern["K1"], kern["K2"], kern["K3"]
+        k1, k2, k3, k4 = kern["K1"], kern["K2"], kern["K3"], kern["K4"]
         line = {"kernels": [
             {"name": "halo_fold", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/halo_fold.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/halo_fold_kernel.py:87",
@@ -2228,6 +2347,11 @@ def main() -> None:
              "launches": launches("cell_stencil"), "max_abs_err": k3["max_abs_err"],
              "ms": k3["C32"]["ms"], "plain_ms": k3["C32"]["plain_ms"], "bound_ms": k3["C32"]["bound_ms"],
              "bound_by": "bytes", "library_ms": None},
+            {"name": "cell_scatter", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/cell_scatter.cu",
+             "replaces": "attentive_dfprior_tpu/ops/grid_sample.py:322",
+             "launches": launches("cell_scatter"), "max_abs_err": k4["max_abs_err"],
+             "ms": k4[K4_TIMED]["ms"], "plain_ms": k4[K4_TIMED]["plain_ms"], "bound_ms": k4[K4_TIMED]["bound_ms"],
+             "bound_by": "bytes", "library_ms": k4[K4_TIMED]["library_ms"]},
         ]}
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -33,6 +33,8 @@ import torch
 
 from attentive_dfprior_tpu.config import default_config_path as j_default_cfg
 from attentive_dfprior_tpu.config import load_config as j_load_config
+# imported before any test patches ``config.load_config``: run.py binds the loader when first imported
+from attentive_dfprior_tpu_torch import run as _run  # noqa: F401
 from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 from test_torch_slam import REPO, tiny_room_cfg

@@ -12,10 +12,12 @@ sizes. The JAX scripts are loaded from their paths with ``importlib``:
     the same scene (skipped where local sockets are refused);
   - ``tools/profile_mapping.py``: every row finite at a tiny shape, its row
     names the JAX script's less the four ``*_rows`` of the TPU's prior
-    layout, plus the ``scatter_bwd_pallas_*`` rows (K3's path);
+    layout, plus the ``scatter_bwd_pallas_*`` rows (K3's path) and the
+    two ``cell_scatter_*`` rows;
   - ``tools/eval_synthetic_demo.py``: accuracy / completion / ratio and ATE
     equal to the JAX script's, within 1e-6, on the same mesh, checkpoint
-    and GT;
+    and GT, meshed by the same marching route on both sides (numpy, then
+    the native libraries);
   - ``tools/run_all_replica.py``: the command sequence, through a
     recording runner.
 """
@@ -44,6 +46,7 @@ from attentive_dfprior_tpu_torch.tools import (
     run_all_replica,
 )
 from attentive_dfprior_tpu_torch.tools.multihost_smoke import TINY_SLAM
+from test_torch_jax_native import jax_native_build, jax_native_off, load_jax_native  # noqa: F401 (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -210,12 +213,13 @@ def test_profile_rows_finite_and_named_as_jax(monkeypatch):
     layout = {"tsdf_sample_rows", "full_iter_color_rows", "fwd_loss_color_rows", "fwd_bwd_color_rows"}
     assert layout <= jax_names and len(jax_names) == 27
     pallas = {f"scatter_bwd_pallas_{gk}" for gk in profile_mapping.GRIDS}
-    assert set(rows) == (jax_names - layout) | pallas
+    scatter = {"cell_scatter_atomic", "cell_scatter_ordered"}
+    assert set(rows) == (jax_names - layout) | pallas | scatter
     for name, r in rows.items():
         assert r["finite"], name
         assert r["ms_per_iter"] > 0 and len(r["rep_ms"]) == 1
         assert r["device_ms_per_iter"] is None  # no profiler pass on the CPU
-        assert r["launches_per_iter"] == {"halo_fold": 0, "decoder_mlp": 0, "cell_stencil": 0}
+        assert r["launches_per_iter"] == {"halo_fold": 0, "decoder_mlp": 0, "cell_stencil": 0, "cell_scatter": 0}
     only = profile_mapping.profile("cpu", iters=1, reps=1, only="cellgrad", workload="tiny", rays=40)
     assert sorted(only) == sorted(n for n in rows if "cellgrad" in n)
 
@@ -250,8 +254,23 @@ def demo_run(tmp_path_factory):
     return cfg_path, str(out)
 
 
-def test_eval_synthetic_demo_matches_jax(demo_run, monkeypatch, capsys):
+@pytest.mark.parametrize("route", ["numpy", "native"])
+def test_eval_synthetic_demo_matches_jax(demo_run, route, request, monkeypatch, capsys):
+    """Both sides mesh the GT on one marching route, whose surfaces are
+    equal only up to vertex order, which moves the surface samples:
+    ``numpy`` (the JAX package's native library made unavailable, the
+    port's GT mesh with ``use_native=False``) or ``native`` (both
+    libraries)."""
+    from attentive_dfprior_tpu_torch.utils.synthetic import SyntheticScene
+
     cfg_path, out = demo_run
+    if route == "numpy":
+        jax_native_off(monkeypatch)
+        gt_mesh = SyntheticScene.gt_mesh
+        monkeypatch.setattr(SyntheticScene, "gt_mesh",
+                            lambda self, resolution=96, use_native=True: gt_mesh(self, resolution, use_native=False))
+    else:
+        load_jax_native(request, monkeypatch)
     monkeypatch.setattr(sys, "argv", ["eval_synthetic_demo.py", cfg_path, out, "--gt_resolution", "64"])
     _load("scripts/eval_synthetic_demo.py", "jax_eval_synthetic_demo").main()
     ref = json.loads(capsys.readouterr().out)

@@ -33,6 +33,7 @@ from attentive_dfprior_tpu.utils import ply as JPLY
 from attentive_dfprior_tpu_torch import native
 from attentive_dfprior_tpu_torch.utils import marching_cubes as TMC
 from attentive_dfprior_tpu_torch.utils import ply as TPLY
+from test_torch_jax_native import jax_native, jax_native_build  # noqa: F401 (fixtures)
 from test_torch_slam import setup, tiny_room_cfg  # noqa: F401 (setup is a fixture)
 
 
@@ -296,11 +297,9 @@ def test_cull_mesh_and_3d_metric_match_jax():
     assert 0.0 < got["accuracy_cm"] < 10.0 and got["completion_ratio_pct"] > 50.0
 
 
-def test_2d_metric_matches_jax():
+def test_2d_metric_matches_jax(jax_native):
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the native rasterizer cannot be built here")
-    if not _jax_native_available():
-        pytest.skip("the JAX package's native library did not build here: nothing to compare with")
     from attentive_dfprior_tpu.tools import eval_recon as JE
     from attentive_dfprior_tpu_torch.tools import eval_recon as TE
 

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_jax_native import jax_native, jax_native_build  # noqa: F401 (fixtures)
 
 F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -166,18 +167,15 @@ REFUSE_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(REFUSE_CASES))
-def test_refuse_on_cpu_matches_jax(case):
+def test_refuse_on_cpu_matches_jax(case, jax_native):
     """``refuse`` on the CPU against JAX's, both scored against the mesh
     they re-fuse: accuracy and completion within 1 mm, F-score within
     0.005."""
-    from attentive_dfprior_tpu import native as j_native
     from attentive_dfprior_tpu.camera import Camera as JCamera
     from attentive_dfprior_tpu.tools import evaluate_scannet as JE
     from attentive_dfprior_tpu_torch.camera import Camera
     from attentive_dfprior_tpu_torch.tools import evaluate_scannet as TE
 
-    if not j_native.available():
-        pytest.skip("the JAX package's native library is not built")
     make, cam, voxel, down = REFUSE_CASES[case]
     verts, faces, poses = make()
     tv, tf = TE.refuse(verts, faces, poses, Camera(**cam), voxel_length=voxel, device="cpu")
