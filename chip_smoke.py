@@ -27,9 +27,14 @@ Phases (each failure exits non-zero):
      capturable transmittance product) ``torch.equal`` to ``torch.cumprod``,
      values and gradients, at the main path's sample shapes; K4, the
      ordered cell scatter (the start of every grid gradient), ``torch.equal``
-     to its plain version on the card and on the CPU, at odd shapes and at
-     ray-shaped points of room0's colour stage (8C and the pair's 16C) and
-     ScanNet's 5000 rays, the atomic ``index_add_`` printed beside;
+     to its plain version on the card and on the CPU and its radix sort's
+     permutation to ``torch.sort(stable=True)``'s, at odd shapes (a width
+     of 25, 2^19 + 1 rows) and at ray-shaped points of room0's colour stage
+     (8C and the pair's 16C) and ScanNet's 5000 rays, where it is timed
+     eagerly and as a graph replay beside zeros + ``index_add_`` and its
+     device kernels a call are counted by the profiler (at most 5); K1's
+     and K3's function as one ``F.conv_transpose3d`` (the library column,
+     ``tools/profile_scatter.py``), timed and held to K1;
   3. the room0-shape SLAM cycle (``tools/bench.py``'s replica workload,
      from its builder) under the ``halo`` grid gradient (K1) and the
      ``pallas`` one (K3), each with its iterations replayed as CUDA graphs
@@ -334,6 +339,7 @@ def phase_kernels(torch, dev):
     from attentive_dfprior_tpu_torch.ops.cuda import decoder_kernel as K2
     from attentive_dfprior_tpu_torch.ops.cuda import halo_fold_kernel as K1
     from attentive_dfprior_tpu_torch.ops.cuda import stencil_kernel as K3
+    from attentive_dfprior_tpu_torch.tools import profile_scatter as PS
     from attentive_dfprior_tpu_torch.utils.tree import tree_map
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -360,10 +366,13 @@ def phase_kernels(torch, dev):
         if nx == 74:
             ms = time_ms(torch, lambda: K1.cell_fold_halo(cells, shape))
             plain_ms = time_ms(torch, lambda: K1.cell_fold_plain(shape, cells))
+            lib = PS.measure_fold(cells, shape, out)  # one conv_transpose3d, held to K1 at rtol 1e-4 / atol 1e-5
             nbytes = nx * ny * nz * 9 * C * 4
             bound_ms = nbytes / PEAK_BYTES * 1e3
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)"
-            k1[f"C{C}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (conv_transpose3d) "
+                     f"{lib['library_ms']:.4f} ms (max abs err vs K1 {lib['max_abs_err_vs_K1']:.3e}), bound "
+                     f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+            k1[f"C{C}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=lib["library_ms"])
         print(line, flush=True)
     rec["K1"] = k1
 
@@ -468,10 +477,12 @@ def phase_kernels(torch, dev):
         if nx == 74:
             ms = time_ms(torch, lambda: K3.cell_stencil_launch(cells, shape))
             plain_ms = time_ms(torch, lambda: K3.cell_stencil_plain(shape, cells))
+            lib = PS.measure_fold(cells, shape, fold)
             nbytes = nx * ny * nz * 9 * C * 4
             bound_ms = nbytes / PEAK_BYTES * 1e3
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)"
-            k3["C32"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (conv_transpose3d) "
+                     f"{lib['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
+            k3["C32"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=lib["library_ms"])
         print(line, flush=True)
     rec["K3"] = k3
 
@@ -499,38 +510,25 @@ def phase_kernels(torch, dev):
 
     # ---- K4, the ordered cell scatter: bit-identical to its plain version ----
     # on the card (whose sequential sums are index_put_'s) and on the CPU
-    # (index_add_'s), at odd shapes (a partial chunk, widths off the 256-column
-    # tile, one index taking every row: a run over many chunks) and at the
-    # main path's: points along rays from a few cameras, as the renderer
-    # places them (every ray's first samples share its camera's cells), into
-    # room0's high grid at the colour stage (5 frames x 200 rays x 48 samples;
-    # 8C and the high + colour pair's 16C) and ScanNet's (10 x 500 x 48); the
-    # atomic index_add_ printed beside (the library call: zeros + index_add_)
-    from attentive_dfprior_tpu_torch.ops import grid_sample as gs
+    # (index_add_'s), its hand-written sort's permutation torch.equal to
+    # torch.sort(stable=True)'s, at odd shapes (a partial chunk, widths off
+    # the 256-column tile, a width off 4 floats: the per-lane loads, one
+    # index taking every row: a run over many chunks, 2^19 + 1 rows: a 20-bit
+    # key in two 10-bit passes) and at the main path's (tools/profile_scatter.py:
+    # points along rays into room0's high grid at the colour stage, 8C and the
+    # pair's 16C, and ScanNet's); at those, timed eagerly and as a graph
+    # replay beside the library call (zeros + atomic index_add_), its device
+    # kernels a call from the profiler (at most 3 + its radix passes)
     from attentive_dfprior_tpu_torch.ops.cuda import cell_scatter_kernel as K4
-
-    def ray_points(cams, rays):
-        """(cams * rays * 48, 3) normalized points: 32 samples from near the
-        camera to past the grid, 16 around a surface depth a ray."""
-        org = torch.rand((cams, 1, 1, 3), generator=g, device=dev) * 1.2 - 0.6
-        d = torch.randn((cams, rays, 1, 3), generator=g, device=dev)
-        d = d / d.norm(dim=-1, keepdim=True)
-        surf = torch.rand((cams, rays, 1), generator=g, device=dev) * 0.9 + 0.3
-        t = torch.cat([torch.linspace(0.02, 1.5, 32, device=dev).expand(cams, rays, 32),
-                       surf + torch.linspace(-0.05, 0.05, 16, device=dev)], dim=-1)
-        return (org + d * t[..., None]).reshape(-1, 3)
 
     k4 = {"max_abs_err": 0.0}
     cases = [("odd, partial chunk", 200, torch.randint(0, 200, (1000,), generator=g, device=dev), 24),
              ("one row", 7, torch.full((1,), 3, device=dev), 520),
              ("33 rows", 5, torch.randint(0, 5, (33,), generator=g, device=dev), 256),
-             ("every row into one index", 3, torch.full((5000,), 1, device=dev), 520)]
-    for label, shape, cams, rays in (("room0 colour stage, 8C", (74, 56, 44, 32), 5, 200),
-                                     ("room0 colour stage, pair 16C", (74, 56, 44, 64), 5, 200),
-                                     ("ScanNet, 8C", (81, 84, 46, 32), 10, 500)):
-        p = ray_points(cams, rays)
-        cell, _ = gs._cell_updates(shape[:3] + (1,), p, torch.zeros((len(p), 1), device=dev))
-        cases.append((label, shape, cell, 8 * shape[3]))
+             ("every row into one index", 3, torch.full((5000,), 1, device=dev), 520),
+             ("width 25", 1000, torch.randint(0, 1000, (3000,), generator=g, device=dev), 25),
+             ("2^19 + 1 rows", 2**19 + 1, torch.randint(0, 2**19 + 1, (240_000,), generator=g, device=dev), 32)]
+    cases += [(label, shape, cell, 8 * shape[3]) for label, shape, cell in PS.ray_cases(g, dev)]
     for label, where, idx, width in cases:
         nrows = where if isinstance(where, int) else where[0] * where[1] * where[2]
         rows = torch.randn((len(idx), width), generator=g, device=dev)
@@ -538,7 +536,12 @@ def phase_kernels(torch, dev):
         plain = K4.cell_scatter_plain(nrows, idx, rows)
         cpu = K4.cell_scatter_plain(nrows, idx.cpu(), rows.cpu())
         atomic = torch.zeros_like(out).index_add_(0, idx, rows)
+        scell, spos = K4.cell_sort(nrows, idx)
+        ref = torch.sort(idx, stable=True)
         torch.cuda.synchronize()
+        if not (torch.equal(scell.long(), ref.values) and torch.equal(spos.long(), ref.indices)):
+            fail(f"K4's sort differs from torch.sort(stable=True) at {label}: "
+                 f"{int((spos.long() != ref.indices).sum())} of {len(idx)} positions")
         err = float((out - plain).abs().max())
         k4["max_abs_err"] = max(k4["max_abs_err"], err)
         if not (torch.equal(out, plain) and torch.equal(out.cpu(), cpu)):
@@ -546,21 +549,28 @@ def phase_kernels(torch, dev):
                  f"{float((out.cpu() - cpu).abs().max())}")
         counts = torch.bincount(idx, minlength=nrows)
         line = (f"K4 {label}: {len(idx)} rows x {width} into {nrows} ({int((counts > 0).sum())} taken, the most "
-                f"{int(counts.max())} into one): torch.equal to its plain version on the card and on the CPU ok; "
+                f"{int(counts.max())} into one; radix passes {K4.sort_plan(nrows)}): the sort torch.equal to "
+                f"torch.sort(stable=True), the sum torch.equal to its plain version on the card and on the CPU ok; "
                 f"the atomic index_add_ torch.equal to it {torch.equal(atomic, out)} (max abs diff "
                 f"{float((atomic - out).abs().max()):.3e})")
         if not isinstance(where, int):
-            ms = time_ms(torch, lambda: K4.cell_scatter_sum(nrows, idx, rows))
+            m = PS.measure_scatter(nrows, idx, rows)
             # the plain version sorts and sums through index_put_ twice: 16-95 ms a call, so fewer reps
-            plain_ms = time_ms(torch, lambda: K4.cell_scatter_plain(nrows, idx, rows), reps=5, inner=2, warmup=1)
-            library_ms = time_ms(torch, lambda: torch.zeros_like(out).index_add_(0, idx, rows))
+            m["plain_ms"] = time_ms(torch, lambda: K4.cell_scatter_plain(nrows, idx, rows), reps=5, inner=2, warmup=1)
             put_ms = time_ms(torch, lambda: K4.sequential_sum(nrows, idx, rows))  # index_put_, sorted, in order
-            nbytes = len(idx) * (width * 4 + 8) + nrows * width * 4
-            bound_ms = nbytes / PEAK_BYTES * 1e3
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (zeros + index_add_) "
-                     f"{library_ms:.4f} ms, sorted index_put_ {put_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                     f"({nbytes / 1e6:.1f} MB)")
-            k4[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms)
+            m["bound_ms"] = PS.scatter_bound_ms(len(idx), width, nrows, PEAK_BYTES)
+            most = 3 + len(K4.sort_plan(nrows))
+            line += (f"; kernel {m['ms']:.4f} ms eager, {m['graph_ms']:.4f} graphed ({PS.GRAPH_CALLS} calls a "
+                     f"graph); library (zeros + index_add_) {m['library_ms']:.4f} eager, "
+                     f"{m['library_graph_ms']:.4f} graphed; plain {m['plain_ms']:.4f}, sorted index_put_ "
+                     f"{put_ms:.4f}; bound {m['bound_ms']:.4f} ms "
+                     f"({(len(idx) * (width * 4 + 8) + nrows * width * 4) / 1e6:.1f} MB); "
+                     f"{m['kernels_per_call']:.1f} device kernels a call (at most {most}), "
+                     f"{m['device_ms_per_call']:.4f} device ms: "
+                     + "; ".join(f"{c:.1f} x {ms:.4f} ms {name[:60]}" for name, (c, ms) in m["pieces"].items()))
+            if m["kernels_per_call"] > most:
+                fail(f"K4 launched {m['kernels_per_call']} device kernels a call at {label} (at most {most})")
+            k4[label] = m
         print(line, flush=True)
     rec["K4"] = k4
     return rec
@@ -2336,7 +2346,7 @@ def main() -> None:
              "replaces": "attentive_dfprior_tpu/ops/pallas/halo_fold_kernel.py:87",
              "launches": launches("halo_fold"), "max_abs_err": k1["max_abs_err"],
              "ms": k1["C32"]["ms"], "plain_ms": k1["C32"]["plain_ms"], "bound_ms": k1["C32"]["bound_ms"],
-             "bound_by": "bytes", "library_ms": None},
+             "bound_by": "bytes", "library_ms": k1["C32"]["library_ms"]},
             {"name": "decoder_mlp", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/decoder_mlp.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/decoder_kernel.py:115",
              "launches": launches("decoder_mlp"), "max_abs_err": k2["max_abs_err"],
@@ -2346,12 +2356,14 @@ def main() -> None:
              "replaces": "attentive_dfprior_tpu/ops/pallas/stencil_kernel.py:87",
              "launches": launches("cell_stencil"), "max_abs_err": k3["max_abs_err"],
              "ms": k3["C32"]["ms"], "plain_ms": k3["C32"]["plain_ms"], "bound_ms": k3["C32"]["bound_ms"],
-             "bound_by": "bytes", "library_ms": None},
+             "bound_by": "bytes", "library_ms": k3["C32"]["library_ms"]},
             {"name": "cell_scatter", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/cell_scatter.cu",
              "replaces": "attentive_dfprior_tpu/ops/grid_sample.py:322",
              "launches": launches("cell_scatter"), "max_abs_err": k4["max_abs_err"],
              "ms": k4[K4_TIMED]["ms"], "plain_ms": k4[K4_TIMED]["plain_ms"], "bound_ms": k4[K4_TIMED]["bound_ms"],
-             "bound_by": "bytes", "library_ms": k4[K4_TIMED]["library_ms"]},
+             "bound_by": "bytes", "library_ms": k4[K4_TIMED]["library_ms"],
+             "graph_ms": k4[K4_TIMED]["graph_ms"], "library_graph_ms": k4[K4_TIMED]["library_graph_ms"],
+             "kernels_per_call": k4[K4_TIMED]["kernels_per_call"]},
         ]}
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")
