@@ -103,12 +103,18 @@ class RayShards:
     def all_reduce(self, tensors: Sequence[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
         """Sum ``tensors`` over the group: one ``all_reduce(SUM)`` of one
         flat bucket. ``None`` entries pass through (every rank holds the same
-        ones). Without a group the tensors are returned as they are."""
+        ones). Without a group the tensors are returned as they are.
+
+        Nothing waits on the host: the call is synchronous to the caller's
+        stream only (``async_op=False``: the stream waits for the
+        collective's event), so a CUDA graph capturing the caller's stream
+        holds the all-reduce on an NCCL group (``utils/step_graph.py``),
+        the bucket in the graph's pool, at the same address every replay."""
         if self.group is None:
             return list(tensors)
         present = [t for t in tensors if t is not None]
         flat = torch.cat([t.detach().reshape(-1) for t in present])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group, async_op=False)
         out, off = [], 0
         for t in tensors:
             if t is None:
@@ -122,7 +128,8 @@ class RayShards:
         """The whole ``n``-ray batch of a per-ray quantity from this
         process's blocks ``parts`` (in ``ranks`` order): each block written
         at its place in zeros and the result summed over the group, an
-        all-gather that takes blocks of unequal length."""
+        all-gather that takes blocks of unequal length, on the device with
+        no host read (a graph holds it, as ``all_reduce``)."""
         full = parts[0].new_zeros((n,) + tuple(parts[0].shape[1:]))
         for r, p in zip(self.ranks, parts):
             full[self.block(n, r)] = p

@@ -20,7 +20,9 @@ from the latest checkpoint under ``<output>/ckpts`` (either package's).
 package's ``DFPRIOR_TRILINEAR_VJP`` and ``DFPRIOR_ADAM_LAZY=0``. On the card
 each mapping stage's and each tracked frame's iteration is captured once
 as a CUDA graph and replayed (``utils/step_graph.py``); ``--eager`` runs
-it in Python instead (a dp run is always eager). ``--set``
+it in Python instead. A dp agent on NCCL replays its graphs with the
+all-reduce inside; an agent on a gloo group (``--device cpu``, or gloo
+asked for by name) always runs eager. ``--set``
 overrides config entries after loading (values parsed as YAML scalars),
 e.g. ``--set mapping.vis_freq=5``; ``--set sync_method=loose`` (or
 ``free``) runs the mapper on a worker thread of its own

@@ -24,7 +24,9 @@ optimized with the scene, anchored at one frozen window keyframe.
 
 Under ray-axis data parallelism (``parallel/sharding.py``) every rank draws
 the same whole batch, renders its block, and the gradients (BA's pose
-gradient with them) are summed over the group before the masks and Adam.
+gradient with them) are summed over the group before the masks and Adam;
+on an NCCL group the graph holds that all-reduce, as the JAX package's
+compiled step holds its psum (ref: slam/mapper.py:236-241, 284-287).
 """
 
 from __future__ import annotations
@@ -411,7 +413,8 @@ class Mapper:
     ``adam_lazy`` and ``shards`` (the dp group) as in ``mapping_stage``.
     ``step_mode`` (``utils/step_graph.py:resolve_step_mode``): ``graph``
     replays each stage's iteration as a CUDA graph, ``eager`` runs it; by
-    default ``graph`` on a CUDA device without ``shards``. ``concurrent``:
+    default ``graph`` on a CUDA device unless ``shards``' group is on gloo
+    (an NCCL group's all-reduce is captured with the step). ``concurrent``:
     another agent runs on another thread (the async modes). ``graphs``
     holds this agent's programs, static buffers and memory pool; loop
     closure's relaxation, which runs on the mapper's thread, replays its
@@ -434,8 +437,9 @@ class Mapper:
     ):
         m = cfg["mapping"]
         self.shards = shards
-        self.step_mode = resolve_step_mode(step_mode, device, dp=shards is not None)
-        self.graphs = StepGraphs(self.step_mode, device, concurrent=concurrent)
+        group = shards.group if shards is not None else None
+        self.step_mode = resolve_step_mode(step_mode, device, group)
+        self.graphs = StepGraphs(self.step_mode, device, concurrent=concurrent, group=group)
         self.grid_vjp = grid_vjp
         self.adam_lazy = adam_lazy
         self.cfg = cfg

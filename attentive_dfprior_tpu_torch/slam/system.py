@@ -82,7 +82,6 @@ from attentive_dfprior_tpu_torch.utils.device import resolve_device
 from attentive_dfprior_tpu_torch.utils.logger import Logger, load_checkpoint
 from attentive_dfprior_tpu_torch.utils.mesher import Mesher
 from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer
-from attentive_dfprior_tpu_torch.utils.step_graph import resolve_step_mode
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 from attentive_dfprior_tpu_torch.utils.visualizer import Visualizer
 
@@ -169,10 +168,13 @@ class SLAMSystem:
         step_mode: ``graph`` replays each mapping stage's and each tracked
             frame's iteration as a CUDA graph (``utils/step_graph.py``, the
             JAX package's compiled ``lax.scan`` loops), ``eager`` runs it
-            in Python; None: ``graph`` on a CUDA device without ray-axis dp
-            (its gloo collectives cannot be captured), else ``eager``.
-            ``graph`` on the CPU or under dp raises. ``self.step_mode``
-            says which ran.
+            in Python; None: each agent's default by its own group
+            (``resolve_step_mode``): ``graph`` on a CUDA device for an
+            agent with no group (one process, or a ``parallel.split`` agent
+            alone in its group) or on an NCCL group, ``eager`` on a gloo
+            group, whose collectives cannot be captured. ``graph`` on the
+            CPU or on a gloo group raises. ``self.step_mode`` says which
+            ran: {"map": the mapper's mode, "track": the tracker's}.
 
     Pixel draws: the mapper (and loop closure's relaxation, which runs
     after a mapped frame) draws from ``self.generator``. In strict mode the
@@ -273,19 +275,19 @@ class SLAMSystem:
             occupancy=bool(cfg.get("occupancy", True)),
         )
         self.renderer = Renderer(self.rcfg, self.scene_cfg.bound, self.tsdf_bnds, self.cam, self.device)
-        # graphed or eager steps (utils/step_graph.py): a dp run is eager
-        self.step_mode = resolve_step_mode(step_mode, self.device, dp=world is not None)
+        # graphed or eager steps (utils/step_graph.py), each agent's by its own group
         concurrent = self.sync_method != "strict"
         self.mapper = Mapper(
             cfg, self.cam, self.scene_cfg, self.rcfg, self.tsdf_volume, self.tsdf_bnds, self.device,
             grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards if self.groups is None else self.groups.map,
-            step_mode=self.step_mode, concurrent=concurrent,
+            step_mode=step_mode, concurrent=concurrent,
         )
         self.tracker = Tracker(
             cfg, self.cam, self.rcfg, self.scene_cfg.bound, self.tsdf_volume_track, self.tsdf_bnds, self.device,
             grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards if self.groups is None else self.groups.track,
-            step_mode=self.step_mode, concurrent=concurrent,
+            step_mode=step_mode, concurrent=concurrent,
         )
+        self.step_mode = {"map": self.mapper.step_mode, "track": self.tracker.step_mode}
         self.mesher = Mesher(cfg, self.cam, self.scene_cfg.bound, self.tsdf_bnds, self.device)
         self.logger = Logger(os.path.join(self.output, "ckpts"), self.verbose)
         self.visualizer = Visualizer(

@@ -18,7 +18,9 @@ Under ray-axis data parallelism (``parallel/sharding.py``) every rank
 draws the whole batch and renders its block. Two quantities are global, or
 the ranks would keep different poses: the dynamic-pixel cut's median over
 every in-bound ray's error (gathered), and the loss that picks the best
-candidate (summed over the group with the 7-DoF gradient).
+candidate (summed over the group with the 7-DoF gradient). On an NCCL
+group the graph holds both collectives, as the JAX package's compiled
+frame does (ref: slam/tracker.py:119-135, 239).
 """
 
 from __future__ import annotations
@@ -256,11 +258,12 @@ class Tracker:
     """Host-side tracking agent (ref: src/Tracker.py:150-274); ``grid_vjp``,
     ``adam_lazy`` and ``shards`` (the dp group) as in ``track_frame``.
     ``step_mode``: ``graph`` replays a frame's iteration as a CUDA graph,
-    ``eager`` runs it (by default ``graph`` on a CUDA device without
-    ``shards``). ``concurrent``: the async modes, where the tracker reads
-    published snapshots: its graphs read a static scene of its own that
-    each new snapshot is copied into (``StepGraphs.scene``), and the
-    final refine replays them too."""
+    ``eager`` runs it (by default ``graph`` on a CUDA device unless
+    ``shards``' group is on gloo; on NCCL the graph holds the all-reduce
+    and the gathered median). ``concurrent``: the async modes, where the
+    tracker reads published snapshots: its graphs read a static scene of
+    its own that each new snapshot is copied into (``StepGraphs.scene``),
+    and the final refine replays them too."""
 
     def __init__(
         self,
@@ -279,8 +282,9 @@ class Tracker:
     ):
         t = cfg["tracking"]
         self.shards = shards
-        self.step_mode = resolve_step_mode(step_mode, device, dp=shards is not None)
-        self.graphs = StepGraphs(self.step_mode, device, concurrent=concurrent, copy_scene=concurrent)
+        group = shards.group if shards is not None else None
+        self.step_mode = resolve_step_mode(step_mode, device, group)
+        self.graphs = StepGraphs(self.step_mode, device, concurrent=concurrent, copy_scene=concurrent, group=group)
         self.grid_vjp = grid_vjp
         self.adam_lazy = adam_lazy
         self.cam = cam

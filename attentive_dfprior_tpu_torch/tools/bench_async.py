@@ -60,7 +60,8 @@ def run_mode(sync: str, frames: int, out: str, device: str, parallel: Optional[D
     """One rep: a fresh SLAMSystem on the workload under ``sync`` (with the
     ``parallel`` config section, on the process group this process joined);
     its record, read from the writer's ``metrics.jsonl`` (``{"writer":
-    False}`` on another rank)."""
+    False}`` and the rest below on another rank), with the rank and both
+    agents' step modes (``SLAMSystem.step_mode``)."""
     from attentive_dfprior_tpu_torch import config
     from attentive_dfprior_tpu_torch.run import apply_overrides
     from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
@@ -83,8 +84,9 @@ def run_mode(sync: str, frames: int, out: str, device: str, parallel: Optional[D
     if slam.device.type == "cuda":
         torch.cuda.synchronize(slam.device)
     wall = time.perf_counter() - t0
+    rank = {"rank": slam.rank, "step_mode": slam.step_mode}
     if not slam.is_writer:
-        return {"writer": False}
+        return {"writer": False, **rank}
 
     events = [json.loads(ln) for ln in open(os.path.join(out, "metrics.jsonl"))]
     tracks = [e for e in events if e["event"] == "track"]
@@ -92,6 +94,7 @@ def run_mode(sync: str, frames: int, out: str, device: str, parallel: Optional[D
     iv = np.diff([e["t"] for e in tracks]) if len(tracks) > 1 else np.zeros(0)
     return {
         "writer": True,
+        **rank,
         "sync_method": sync,
         "parallel": parallel,
         "frames": frames,
@@ -132,14 +135,19 @@ def run_ranks(sync: str, frames: int, out: str, device: str, parallel: Dict[str,
               overrides: Sequence[str], cwd: str) -> Dict[str, Any]:
     """One rep as ``world`` processes joined over gloo (on ``cuda:0`` when
     ``device`` is the card) in the working directory ``cwd``, one torch CPU
-    thread each (the ranks share the host's cores); the writer's record."""
+    thread each (the ranks share the host's cores); the writer's record,
+    with every rank's step modes (``step_mode_by_rank``, in rank order: a
+    dp rank's agents run eager on gloo, a split agent alone in its group
+    graphed)."""
     from attentive_dfprior_tpu_torch.tools import multihost_smoke as mh
 
     dev = "cuda:0" if device == "cuda" else device
     spec = {"sync": sync, "frames": frames, "output": out, "device": dev, "backend": "gloo",
             "parallel": parallel, "overrides": list(overrides), "threads": 1}
     results = mh.finish(mh.start("bench", spec, world, cwd=cwd), timeout=3600)
-    return next(r for r in results if r["writer"])
+    rec = next(r for r in results if r["writer"])
+    rec["step_mode_by_rank"] = [r["step_mode"] for r in sorted(results, key=lambda r: r["rank"])]
+    return rec
 
 
 def main(argv: Optional[List[str]] = None, overrides: Sequence[str] = ()) -> Dict[str, Any]:

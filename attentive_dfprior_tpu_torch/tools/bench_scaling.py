@@ -2,7 +2,8 @@
 
     python -m attentive_dfprior_tpu_torch.tools.bench_scaling [--devices 1,2,4,8]
         [--pixels 1000,5000] [--mode strong|weak] [--accum 1,5] [--iters 6]
-        [--reps 3] [--device cuda|cpu] [--step-s-1dev S] [--out SCALING.json]
+        [--reps 3] [--device cuda|cpu] [--step-modes graph,eager]
+        [--step-s-1dev S] [--out SCALING.json]
 
 Measures the production data-parallel mapping stage (``slam/mapper.py``
 ``mapping_stage`` in the colour stage, the ray batch split over the ranks
@@ -15,6 +16,13 @@ nothing about scaling. The scene is ``tools/bench.py``'s replica workload
 (room0's bound and 680x1200 camera, grids 0.32 / 0.16 / 0.16 m, C = 32,
 five random frames) with the JAX harness's coarse 0.0625 m prior, the same
 for every rank count.
+
+Each rank's stage runs in its agent's step mode (``utils/step_graph.py``),
+resolved from the rank's group: on the card one CUDA graph an iteration,
+the all-reduce inside on NCCL (one rank has no group and no collective),
+eager on gloo; ``--step-modes graph,eager`` times the modes named in
+turns, rep by rep, the first the headline. The record names the mode that
+ran, read from the agent's ``StepGraphs``.
 
 Modes, as in the JAX harness: ``strong`` (``--pixels`` is the whole batch,
 each rank's share shrinks with n), ``weak`` (``--pixels`` is each rank's
@@ -56,20 +64,23 @@ PREDICT_RANKS = (1, 2, 4, 8)  # the comm model's rank counts, with every --devic
 
 
 def child_measure(n_devices: int, pixels: int, n_iters: int, reps: int, device: str,
-                  accum_k: int = 1) -> Dict[str, Any]:
+                  accum_k: int = 1, step_modes: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """One rank's measurement of the colour-stage ``mapping_stage``: joins
     the group the launcher's variables name (``run_ranks`` names one, a
-    world of one for one rank), runs one
-    warm-up stage of ``n_iters`` iterations, then ``reps`` timed stages.
+    world of one for one rank), runs one warm-up stage of ``n_iters``
+    iterations in each of ``step_modes`` (default: the mode the rank's
+    group resolves to), then ``reps`` timed stages in each, the modes in
+    turns, each from a zeroed Adam state at the agent's static addresses.
     ``pixels`` is the whole base ray batch an iteration; ``accum_k`` goes to
-    ``mapping_stage(accum=)``. Returns the record (rank 0's is the one the
+    ``mapping_stage(accum=)``. Returns the record, the first mode's the
+    headline and every mode's under ``by_mode`` (rank 0's is the one the
     parent reads)."""
     from attentive_dfprior_tpu_torch.models.scene import init_scene
-    from attentive_dfprior_tpu_torch.ops.adam import adam_init
     from attentive_dfprior_tpu_torch.ops.cuda.build import port_kernels
     from attentive_dfprior_tpu_torch.parallel.sharding import init_distributed, mesh_from_config, replicate
     from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, mapping_stage
     from attentive_dfprior_tpu_torch.tools.bench import build_workload
+    from attentive_dfprior_tpu_torch.utils.step_graph import StepGraphs
     from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 
     import torch.distributed as dist
@@ -94,11 +105,15 @@ def child_measure(n_devices: int, pixels: int, n_iters: int, reps: int, device: 
         F = wl.colors.shape[0]
         pixs_per_image = max(1, pixels // F)
         draws = torch.Generator(device=dev).manual_seed(2)  # the same draws on every rank
+        agent_group = shards.group if shards is not None else None
+        agents = {g.mode: g for g in (StepGraphs(m, dev, group=agent_group) for m in step_modes or [None])}
+        modes = list(agents)
 
-        def one_stage():
-            return mapping_stage(params, adam_init(params), wl.colors, wl.depths, wl.c2ws, None, wl.tsdf, wl.bound,
-                                 wl.bound, n_iters, [0.0] * n_iters, lrs, "color", pixs_per_image, wl.cam, wl.rcfg,
-                                 (False, False), 0.2, generator=draws, accum=accum_k, shards=shards)
+        def one_stage(graphs):
+            return mapping_stage(params, graphs.adam("scene", params), wl.colors, wl.depths, wl.c2ws, None, wl.tsdf,
+                                 wl.bound, wl.bound, n_iters, [0.0] * n_iters, lrs, "color", pixs_per_image, wl.cam,
+                                 wl.rcfg, (False, False), 0.2, generator=draws, accum=accum_k, shards=shards,
+                                 graphs=graphs)
 
         def sync():
             if dev.type == "cuda":
@@ -106,32 +121,45 @@ def child_measure(n_devices: int, pixels: int, n_iters: int, reps: int, device: 
             if group:
                 dist.barrier()
 
+        def timed(graphs):
+            sync()
+            t0 = time.perf_counter()
+            out = one_stage(graphs)
+            sync()
+            return out, time.perf_counter() - t0
+
         kernels = port_kernels()
         before = {k.name: k.launches for k in kernels}  # the warm-up's launches count too
-        t0 = time.perf_counter()
-        losses = one_stage()
-        sync()
-        warmup_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        warmup_s, elapsed = {}, {m: 0.0 for m in modes}
+        finite = True
+        for m in modes:  # the warm-up stage: a graph's eager iterations and its capture
+            losses, warmup_s[m] = timed(agents[m])
+            finite &= bool(torch.isfinite(losses).all())
         for _ in range(reps):
-            losses = one_stage()
-        sync()
-        elapsed = time.perf_counter() - t0
+            for m in modes:
+                losses, dt = timed(agents[m])
+                elapsed[m] += dt
+                finite &= bool(torch.isfinite(losses).all())
         rays = pixs_per_image * F * accum_k * n_iters * reps
+        by_mode = {m: {"step_mode": m, "rays_per_s": rays / elapsed[m],
+                       "step_s": elapsed[m] / (n_iters * reps), "warmup_s": warmup_s[m], "elapsed_s": elapsed[m],
+                       "graphs": agents[m].stats()} for m in modes}
+        head = by_mode[modes[0]]
         return {
             "n_devices": n_devices,
             "rank": dist.get_rank() if group else 0,
             "pixels": pixs_per_image * F * accum_k,
-            "rays_per_s": rays / elapsed,
-            "step_s": elapsed / (n_iters * reps),
-            "warmup_s": warmup_s,
-            "elapsed_s": elapsed,
+            "rays_per_s": head["rays_per_s"],
+            "step_s": head["step_s"],
+            "warmup_s": head["warmup_s"],
+            "elapsed_s": head["elapsed_s"],
             "grad_bytes_per_step": grad_bytes,
-            "losses_finite": bool(torch.isfinite(losses).all()),
+            "losses_finite": finite,
             "launches": {k.name: k.launches - before[k.name] for k in kernels},
             "backend": dist.get_backend() if group else "none",
             "device": str(dev),
-            "step_mode": "eager",  # the dp step's collectives cannot be captured; one rank runs the same step
+            "step_mode": head["step_mode"],
+            "by_mode": by_mode,
         }
     finally:
         if group:
@@ -186,7 +214,7 @@ def comm_model(grad_bytes: int, step_s_1dev: float, rays_per_step: int, device_k
 
 
 def run_ranks(n: int, px: int, iters: int, reps: int, device: str, accum_k: int,
-              timeout: float = 1800.0) -> Dict[str, Any]:
+              step_modes: Optional[Sequence[str]] = None, timeout: float = 1800.0) -> Dict[str, Any]:
     """``child_measure`` in ``n`` processes joined over a local port (a
     world of one for ``n`` = 1, so the backend runs there too); returns
     rank 0's record with every rank's launches. Every child is stopped
@@ -197,6 +225,8 @@ def run_ranks(n: int, px: int, iters: int, reps: int, device: str, accum_k: int,
     cmd = [sys.executable, "-m", "attentive_dfprior_tpu_torch.tools.bench_scaling", "--child", "--n", str(n),
            "--px", str(px), "--iters", str(iters), "--accum-k", str(accum_k), "--reps", str(reps),
            "--device", device]
+    if step_modes:
+        cmd += ["--step-modes", ",".join(step_modes)]
     procs = []
     for rank in range(n):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
@@ -223,6 +253,7 @@ def run_ranks(n: int, px: int, iters: int, reps: int, device: str, accum_k: int,
         records.append(json.loads(lines[-1][len(TAG):]))
     rec = records[0]
     rec["launches_by_rank"] = [r["launches"] for r in records]
+    rec["step_mode_by_rank"] = [r["step_mode"] for r in records]
     rec["losses_finite"] = all(r["losses_finite"] for r in records)
     return rec
 
@@ -237,6 +268,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--iters", type=int, default=6)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--step-modes", default=None,
+                    help="comma list of step modes timed in turns, the first the headline (default: each rank's "
+                         "own, graph on the card unless its group is on gloo)")
     ap.add_argument("--step-s-1dev", type=float, default=None,
                     help="the one-device step seconds for the comm model (default: this run's one-rank measurement)")
     ap.add_argument("--out", default=None, help="also write the JSON record here")
@@ -246,8 +280,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--accum-k", type=int, default=1, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
+    step_modes = args.step_modes.split(",") if args.step_modes else None
     if args.child:
-        rec = child_measure(args.n, args.px, args.iters, args.reps, args.device, args.accum_k)
+        rec = child_measure(args.n, args.px, args.iters, args.reps, args.device, args.accum_k, step_modes)
         print(TAG + json.dumps(rec), flush=True)
         return rec
 
@@ -266,9 +301,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 global_px = px * (n if args.mode == "weak" else 1)
                 iters = max(2, args.iters // k)
                 print(f"[bench_scaling] mode={args.mode} n={n} px/dev={global_px // n} accum={k} ...", flush=True)
-                rec = run_ranks(n, global_px, iters, args.reps, args.device, k)
+                rec = run_ranks(n, global_px, iters, args.reps, args.device, k, step_modes)
                 rec.update(mode=args.mode, accum=k, base_pixels=px)
-                print(f"    -> {rec['rays_per_s']:.0f} rays/s (warm-up {rec['warmup_s']:.1f} s)", flush=True)
+                print(f"    -> {rec['rays_per_s']:.0f} rays/s, {rec['step_mode']} steps (warm-up {rec['warmup_s']:.1f} s)",
+                      flush=True)
                 results.append(rec)
 
     workloads = {}

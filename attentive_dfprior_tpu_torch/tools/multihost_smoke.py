@@ -194,10 +194,12 @@ def slam_worker(spec) -> Dict[str, Any]:
     run (the witness of ``compare_slam``). With ``spec["crash_rank"]`` that
     rank's mapper raises at its first map job. Writes the final scene leaves
     and the trajectory to ``<spec["record"]>.rank<r>.npz``; returns the
-    rank's role, the schedule's decision log as the rank appended or
-    replayed it, frame 0's per-iteration map losses, the tracking and
-    mapping losses and the map / publish events of ``metrics.jsonl`` (the
-    writer's), every kernel's launches, and seconds by part."""
+    rank's role, both agents' step modes (``SLAMSystem.step_mode``: graph
+    where an agent is alone in its group or on NCCL, eager on gloo), the
+    schedule's decision log as the rank appended or replayed it, frame 0's
+    per-iteration map losses, the tracking and mapping losses and the map /
+    publish events of ``metrics.jsonl`` (the writer's), every kernel's
+    launches, and seconds by part."""
     from attentive_dfprior_tpu_torch.config import default_config_path, load_config
     from attentive_dfprior_tpu_torch.ops.cuda.build import port_kernels
     from attentive_dfprior_tpu_torch.run import apply_overrides

@@ -22,6 +22,15 @@ each grid's gradient on the card (twice a step); the port's per-leaf lazy
 step reads one scene: the leaf counts as touched, and its other scenes move
 by their Adam moments, as in the JAX package.
 
+The JAX package runs every step in one jitted ``lax.scan`` (ref:
+tools/pretrain_decoders.py:152-155). Here the step is one ``StepGraph``
+(``utils/step_graph.py``, ``init_train``): on the card it is
+captured once as a CUDA graph and replayed ``steps`` times, its draws from
+the registered device generator, the parameters and the Adam state updated
+in place, each step's loss written into a preallocated ``(steps,)`` tensor
+at a device-side counter; on the CPU (or ``step_mode="eager"``) the same
+step runs eagerly.
+
 Output: ``low000…`` / ``high000…`` arrays in jax flatten order, the layout
 ``models/decoders.py:load_pretrained_npz`` (and the JAX package's) reads.
 
@@ -47,6 +56,7 @@ from attentive_dfprior_tpu_torch.models.decoders import init_mlp_decoder, mlp_de
 from attentive_dfprior_tpu_torch.ops.adam import AdamState, adam_init, adam_update
 from attentive_dfprior_tpu_torch.ops.grid_sample import sample_feature_grid
 from attentive_dfprior_tpu_torch.utils.device import resolve_device
+from attentive_dfprior_tpu_torch.utils.step_graph import StepGraphs
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
 
 N_OBJ = 8
@@ -168,6 +178,46 @@ def init_pretrain_params(generator: torch.Generator, scenes: int, grid_res: int,
     }
 
 
+def init_train(steps: int, scenes: int = 32, grid_res: int = 24, c_dim: int = 32, batch: int = 8192,
+               lr: float = 1e-3, seed: int = 0, device=None, step_mode: Optional[str] = None):
+    """The seed's parameters and scenes and their step program for
+    ``steps`` steps, none run yet: one ``StepGraph`` (``step_mode``, by
+    default graphs on the card, ``utils/step_graph.py:resolve_step_mode``)
+    whose step draws from the device generator (``draw_step``), takes
+    ``pretrain_step`` in place on the parameters and the Adam state, and
+    writes the loss into a preallocated ``(steps,)`` tensor at a
+    device-side step counter, so that every call, eager or a replay, writes
+    the next entry. Returns (params, the losses, the ``StepGraphs``, the
+    ``StepGraph`` a call of which runs one step)."""
+    dev = resolve_device(device)
+    host = torch.Generator().manual_seed(seed)
+    params = tree_map(lambda t: t.to(dev).requires_grad_(True),
+                      init_pretrain_params(host, scenes, grid_res, c_dim))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    geom = sample_scene_geometry(gen, scenes)
+    state, lr_tree = adam_init(params), tree_map(lambda _: lr, params)
+    graphs = StepGraphs(step_mode, dev)
+    losses = torch.zeros((steps,), dtype=torch.float32, device=dev)
+    it = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+    def step() -> None:
+        loss = pretrain_step(params, state, lr_tree, *draw_step(geom, gen, batch, c_dim))
+        losses.index_copy_(0, it, loss.reshape(1))
+        it.add_(1)
+
+    return params, losses, graphs, graphs.step_graph(step, (gen,), tree_leaves(params))
+
+
+def train(steps: int, scenes: int = 32, grid_res: int = 24, c_dim: int = 32, batch: int = 8192, lr: float = 1e-3,
+          seed: int = 0, device=None, step_mode: Optional[str] = None):
+    """``steps`` pretrain steps of ``init_train``'s program. Returns
+    (params, the (steps,) losses on the device, the ``StepGraphs``)."""
+    params, losses, graphs, step = init_train(steps, scenes, grid_res, c_dim, batch, lr, seed, device, step_mode)
+    for _ in range(steps):
+        step()
+    return params, losses, graphs
+
+
 def save_decoders(params: Dict[str, Any], out_path: str) -> str:
     """Write the low/high decoders as ``low000…`` / ``high000…`` arrays."""
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
@@ -189,26 +239,18 @@ def pretrain(
     seed: int = 0,
     verbose: bool = True,
     device=None,
+    step_mode: Optional[str] = None,
 ) -> Tuple[str, np.ndarray]:
-    """Train and write the decoders to ``out_path``; returns (the path,
-    the loss of every step)."""
-    dev = resolve_device(device)
-    host = torch.Generator().manual_seed(seed)
-    params = tree_map(lambda t: t.to(dev).requires_grad_(True),
-                      init_pretrain_params(host, scenes, grid_res, c_dim))
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    geom = sample_scene_geometry(gen, scenes)
-    state = adam_init(params)
-    lr_tree = tree_map(lambda _: lr, params)
-    losses: List[torch.Tensor] = []
+    """Train (``train``) and write the decoders to ``out_path``; returns
+    (the path, the loss of every step)."""
     t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(pretrain_step(params, state, lr_tree, *draw_step(geom, gen, batch, c_dim)))
-    out = torch.stack(losses).cpu().numpy()  # the one wait for the device
+    params, losses, graphs = train(steps, scenes, grid_res, c_dim, batch, lr, seed, device, step_mode)
+    out = losses.cpu().numpy()  # the one wait for the device
     if verbose:
         for it in range(0, steps, max(1, steps // 10)):
             print(f"step {it}: loss {out[it]:.4f}")
-        print(f"final loss {out[-1]:.4f} ({time.perf_counter() - t0:.1f} s for {steps} steps on {dev})")
+        print(f"final loss {out[-1]:.4f} ({time.perf_counter() - t0:.1f} s for {steps} steps on {graphs.device}, "
+              f"{graphs.mode} steps)")
     save_decoders(params, out_path)
     if verbose:
         print(f"saved pretrained decoders to {out_path}")

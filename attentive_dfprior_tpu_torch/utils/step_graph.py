@@ -11,10 +11,12 @@ reads after, the parameter leaves and the optimizer state, all at fixed
 addresses and updated in place (the JAX package donated them).
 
 ``mode``:
-  - ``eager``: every iteration runs the Python step (on the CPU, under
-    ray-axis dp, whose gloo collectives cannot be captured, and on
+  - ``eager``: every iteration runs the Python step (on the CPU, for an
+    agent on a gloo group, whose collectives cannot be captured, and on
     request);
-  - ``graph`` (the default on a CUDA device without dp): the first
+  - ``graph`` (the default on a CUDA device for an agent with no group of
+    its own, one process or a ``parallel.split`` agent alone in its group,
+    and for an agent on an NCCL group): the first
     ``WARMUP_ITERS`` iterations of a program run the step on the agent's
     side stream (they are iterations of the stage like the others, and set
     up the allocator, cuBLAS and the kernels' libraries before a capture),
@@ -40,6 +42,17 @@ agent run one at a time on its thread and share its pool. While another
 thread may launch work during a capture (``concurrent``), the capture runs
 in ``thread_local`` error mode.
 
+An agent on an NCCL group (ray-axis dp, ``parallel/sharding.py``) captures
+its step's ``all_reduce`` into the graph, as the JAX package's compiled
+step holds its psum: the warm-up iterations run the group's first
+collectives eagerly, which create its communicator before any capture;
+ProcessGroupNCCL orders its own stream after the capturing stream and the
+capturing stream after its own by events, which a capture records as graph
+edges, and leaves captured work out of its watchdog. The watchdog thread
+queries the events of other work while a capture runs, which a capture in
+``global`` mode takes for an illegal call, so such an agent captures in
+``thread_local`` mode too.
+
 A replay writes its tensors in place without PyTorch seeing it, so it
 advances the ``_version`` of the tensors its program names as written (the
 parameters it updates): readers that key on ``_version``, as K2's weight
@@ -53,29 +66,37 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from attentive_dfprior_tpu_torch.ops.adam import AdamState, adam_init, adam_reset
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
 
 STEP_MODES = ("graph", "eager")
-DP_EAGER = "step mode 'graph' under ray-axis dp: the group's collectives cannot be captured; run eager"
+GLOO_EAGER = "step mode 'graph' on a gloo group: gloo collectives cannot be captured in a CUDA graph; run eager"
 WARMUP_ITERS = 2  # eager iterations of a program on the side stream before its capture
 MAX_PROGRAMS = 32  # programs an agent keeps (the oldest go first)
 
 
-def resolve_step_mode(mode: Optional[str], device, dp: bool = False) -> str:
-    """The step mode an agent runs: ``mode``, or by default ``graph`` on a
-    CUDA device without ray-axis dp and ``eager`` otherwise. ``graph`` on
-    the CPU or under dp raises."""
+def capturable_group(group) -> bool:
+    """Whether a graph can hold ``group``'s collectives: no group at all,
+    or a group on NCCL (``dist.get_backend``); a gloo group cannot."""
+    return group is None or str(dist.get_backend(group)).lower() == "nccl"
+
+
+def resolve_step_mode(mode: Optional[str], device, group=None) -> str:
+    """The step mode of an agent whose collectives run over ``group`` (its
+    dp group, None where it has none): ``mode``, or by default ``graph`` on
+    a CUDA device where the group is None or on NCCL and ``eager``
+    otherwise. ``graph`` on the CPU or on a gloo group raises."""
     dev = torch.device(device)
     if mode is None:
-        return "graph" if dev.type == "cuda" and not dp else "eager"
+        return "graph" if dev.type == "cuda" and capturable_group(group) else "eager"
     if mode not in STEP_MODES:
         raise ValueError(f"step mode {mode!r} is not one of {STEP_MODES}")
     if mode == "graph" and dev.type != "cuda":
         raise ValueError(f"step mode 'graph' needs a CUDA device, got {dev}: CUDA graphs do not run on the CPU")
-    if mode == "graph" and dp:
-        raise ValueError(DP_EAGER)
+    if mode == "graph" and not capturable_group(group):
+        raise ValueError(GLOO_EAGER)
     return mode
 
 
@@ -205,13 +226,17 @@ class StepGraphs:
             their buffers across publishes.
         graph_factory: makes the graph objects (``torch.cuda.CUDAGraph``;
             a stub in the CPU tests of the launch accounting).
+        group: the agent's dp group (``RayShards.group``), None where it
+            has none: it fixes the default mode (``resolve_step_mode``),
+            and an NCCL group captures in ``thread_local`` error mode.
     """
 
     def __init__(self, mode: Optional[str], device, concurrent: bool = False, copy_scene: bool = False,
-                 graph_factory: Optional[Callable[[], Any]] = None):
+                 graph_factory: Optional[Callable[[], Any]] = None, group=None):
         self.device = torch.device(device)
-        self.mode = resolve_step_mode(mode, self.device) if graph_factory is None else mode
+        self.mode = resolve_step_mode(mode, self.device, group) if graph_factory is None else mode
         self.graphed = self.mode == "graph"
+        self.group = group
         self.concurrent = concurrent
         self.copy_scene = copy_scene
         self.graph_factory = graph_factory or torch.cuda.CUDAGraph
@@ -226,7 +251,7 @@ class StepGraphs:
 
     @property
     def capture_error_mode(self) -> str:
-        return "thread_local" if self.concurrent else "global"
+        return "thread_local" if self.concurrent or self.group is not None else "global"
 
     @property
     def stream_id(self) -> int:
@@ -260,10 +285,10 @@ class StepGraphs:
 
     def step_graph(self, step: Callable[[], None], generators: Iterable[torch.Generator] = (),
                    writes: Sequence[torch.Tensor] = (), shards=None) -> StepGraph:
-        """A ``StepGraph`` of this agent; ``shards``: the step's dp group,
-        which only an eager agent may run."""
-        if self.graphed and shards is not None:
-            raise ValueError(DP_EAGER)
+        """A ``StepGraph`` of this agent; ``shards``: the step's
+        ``RayShards``, whose group a graphed agent may hold only on NCCL."""
+        if self.graphed and shards is not None and not capturable_group(shards.group):
+            raise ValueError(GLOO_EAGER)
         return StepGraph(self, step, generators, writes)
 
     def clear(self) -> None:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-7, 10, 12, 13, 15, 16, 17 and 19, one card
+    python3 chip_smoke.py                # phases 1-7, 10, 12, 13, 15, 16, 17, 19 and 21, one card
     python3 chip_smoke.py --phases 1,2   # build + kernel checks only
     python3 chip_smoke.py --phases 1,8   # the room.yaml quality run
     python3 chip_smoke.py --phases 1,9   # the room_tracking.yaml quality run
@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases 1,18  # the tracking ablation (two variants, 16 frames)
     python3 chip_smoke.py --phases 1,19  # graphed against eager, torch.equal
     python3 chip_smoke.py --phases 1,20  # phase 6's runs under torch.use_deterministic_algorithms
+    python3 chip_smoke.py --phases 1,21  # ray-axis dp graphed on NCCL, a world of one
 
 Phases (each failure exits non-zero):
   1. environment and build: torch / CUDA versions, the card's name and
@@ -118,7 +119,10 @@ Phases (each failure exits non-zero):
      ``ScanNet`` (460x620 after ``crop_edge`` 10, depth and poses exact);
      (b) ``tools/pretrain_decoders.py`` at its shipped widths for 100 steps
      (finite losses, the last below the first, two K1 launches a step, the
-     ``.npz`` through ``load_pretrained_npz``); (c) ``tools/evaluate_scannet.py``
+     ``.npz`` through ``load_pretrained_npz``; each step one graph replay), then
+     20 steps graphed and eager from one seed, ``torch.equal`` in every loss
+     and final leaf, and the 100 steps timed graphed and eager in turns, 4
+     reps each; (c) ``tools/evaluate_scannet.py``
      ``refuse`` on the card: the synthetic GT mesh re-fused along phase 12's
      poses against the GT surface those poses see (recall at least 0.95,
      completion at most 1 cm; accuracy, precision and F-score printed, as
@@ -159,7 +163,8 @@ Phases (each failure exits non-zero):
      panels; the prior built once in the parent): publishes, K1 on the map
      rank, finite losses, the track rank's final scene (the last broadcast)
      equal to the map rank's, the trajectory within 20 cm of phase 4's
-     strict run; unaligned and aligned ATE printed;
+     strict run, both ranks' agents graphed; unaligned and aligned ATE
+     printed;
  17. the harnesses: (a) ``tools/bench.py --workload scannet`` at 3 reps
      (the ScanNet shape: 5000 rays x 60 mapping iterations over a window
      of 10 random 480x640 frames, 5 x 50 x 1000 tracking rays, a random
@@ -173,9 +178,11 @@ Phases (each failure exits non-zero):
      alone, or if the graphed iteration counts other launches; then the
      two ``cell_scatter_*`` rows (the atomic ``index_add_`` and the ordered
      sum) again at the ScanNet shape's 5000 rays; (c)
-     ``tools/bench_scaling.py --devices 1 --pixels 1000,5000`` (a child, a
-     world of one on NCCL) and its comm model's prediction for 2, 4 and 8
-     H100s; fails on a non-finite loss or without K1;
+     ``tools/bench_scaling.py --devices 1 --pixels 1000,5000 --step-modes
+     graph,eager --reps 4`` (a child, a world of one on NCCL; the modes
+     timed in turns) and its comm model's prediction for 2, 4 and 8 H100s
+     from the graphed step; fails on a non-finite loss, without K1, or when
+     the headline did not run graphed;
  18. (only on request) ``tools/ablate_tracking.py --variants base,nodyn
      --end_idx 16`` and ``tools/collect_ablation.py``: each variant's
      aligned ATE (printed, no gate);
@@ -189,15 +196,31 @@ Phases (each failure exits non-zero):
      ``torch.equal``; (c) K1's launches, replays counted, equal to eager's;
  20. (only on request, not with phase 6) phase 6's four runs under
      ``torch.use_deterministic_algorithms``, the cuBLAS workspace fixed for
-     the process (printed, no gate).
+     the process (printed, no gate);
+ 21. ray-axis dp graphed on NCCL, in a child that joins a world of one
+     under deterministic algorithms: phase 19's frame 0 map (100 of 1000
+     iterations) and frames 1-5 tracked (``handle_dynamic`` on, so the
+     gathered median runs), the mapper and tracker on
+     ``RayShards(size=1, ranks=(0,), group=WORLD)``, eager then graphed on
+     the group, then graphed with no group: fails unless graphed and eager
+     on the group are ``torch.equal`` in map losses, final leaves, tracked
+     poses and tracking losses, both agents ran ``graph`` steps with
+     captures in ``thread_local`` capture mode, every mapping program
+     launches K1 a replay and the all-reduce was captured; prints the gap
+     to the run with no group (``torch.equal`` expected) and NCCL's
+     version. Two NCCL ranks cannot share one card, so one card shows the
+     captured collective on a world of one only.
 
-Phases 15 and 16 run ray-axis dp over gloo, whose collectives a graph
-cannot capture: their ranks run eager steps, and their records say so.
+Phases 15(b) and 16(a) run ray-axis dp over gloo, whose collectives a
+graph cannot capture: their ranks run eager steps, and the phases fail
+otherwise; phase 16(b)'s split agents, each alone in its group, run
+graphed, and the phase fails otherwise.
 
 Every path (each timed variant of phase 3, phases 4, 5, 5(b), 6, 7, 8, 9,
 10, 11, 12, 13(b), 14, 17(a), 17(b) and 18, phase 20, each of phase 10(a)'s three runs,
-each of phase 19's two, and each of phase 15(b)'s four processes, phase
-16's and phase 17(c)'s, counted in its child process) runs with the launch
+each of phase 19's two and phase 21's three, and each of phase 15(b)'s
+four processes, phase 16's and phase 17(c)'s, counted in its child process)
+runs with the launch
 counts set to 0 just before it and read just after (a graph replay adds
 the launches its capture holds); the
 ``kernels`` JSON line reports each kernel's launches over those paths with
@@ -269,6 +292,11 @@ GRAPH_EQUAL_SET = ["mapping.iters_first=100", "tsdf.space=10"]
 GRAPH_EQUAL_BA_WINDOW = (0, 1, 2)  # frames of the BA window (F = 3; mapped as frame 5, anchored at frame 0)
 GRAPH_EQUAL_TRACK = range(1, 6)  # phase 19(b): frames 1-5 tracked from one map
 GRAPH_CHILD_TAG = "GRAPH_EQUAL "  # the prefix of phase 19's result line in the child's output
+# phase 21 runs phase 19's frame 0 map (GRAPH_EQUAL_SET) and GRAPH_EQUAL_TRACK, as dp on a world of one on NCCL
+DP_GRAPH_TAG = "DP_GRAPH "  # the prefix of phase 21's result line in the child's output
+PRETRAIN_EQUAL_STEPS = 20  # phase 13(b): the pretrain graphed against eager, torch.equal
+PRETRAIN_TIMED_REPS = 4  # phase 13(b): PRETRAIN_STEPS steps a rep, graphed and eager in turns
+SCALING_REPS = 4  # phase 17(c): timed stages a mode, graphed and eager in turns
 # phases 6 and 20: frame 0's map, twice in each step mode; the prior fused from every 10th frame, the map cut
 # from 1000 iterations to 500 to keep the default run near 1000 s (at 1000: 110.6 s for the four runs)
 DET_SET = ["tsdf.space=10", "mapping.iters_first=500"]
@@ -1146,6 +1174,203 @@ def phase_graph_equal(paths) -> None:
         fail(f"graph equality: graphed and eager differ: {json.dumps(res['equal'])} {json.dumps(res['max_abs_diff'])}")
 
 
+def dp_graph_child() -> None:
+    """Phase 21's runs, in a child process that joins a world of one on
+    NCCL (the parent sets the launcher's variables), under
+    ``torch.use_deterministic_algorithms`` with ``CUBLAS_WORKSPACE_CONFIG``
+    set: one ``SLAMSystem`` on room_tracking.yaml with GRAPH_EQUAL_SET, its
+    mapper and tracker given ``RayShards(size=1, ranks=(0,),
+    group=WORLD)``, so the dp step and its ``all_reduce`` (and the
+    tracker's gathered median, ``handle_dynamic``) run. Three runs from the
+    same scene and generator state, each frame 0's map then frames
+    GRAPH_EQUAL_TRACK tracked from the run's own map: ``eager`` on the group,
+    ``graph`` on the group (the collectives captured), and ``graph`` with
+    no group (the single-process step). Counts the ``all_reduce`` calls
+    made eagerly and under a capture, and each mapping program's K1
+    launches a replay. Prints NCCL's and PyTorch's versions, then one line,
+    DP_GRAPH_TAG and a JSON object: the three runs' losses compared (equal,
+    the first differing iteration), leaves and poses, the graphs' counts,
+    the capture mode, launches and seconds."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.ops.cuda import build
+    from attentive_dfprior_tpu_torch.ops.pose import homogenize, pose_matrix_from_tensor, pose_tensor_from_matrix
+    from attentive_dfprior_tpu_torch.parallel.sharding import RayShards, init_distributed
+    from attentive_dfprior_tpu_torch.run import apply_overrides
+    from attentive_dfprior_tpu_torch.slam.system import SLAMSystem
+    from attentive_dfprior_tpu_torch.slam.tracker import track_frame
+    from attentive_dfprior_tpu_torch.utils.step_graph import StepGraphs
+    from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
+
+    kernels = build.port_kernels()
+    os.chdir(REPO)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    init_distributed(device="cuda:0")
+    print(f"dp graph child: torch {torch.__version__}, CUDA {torch.version.cuda}, NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}, backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}", flush=True)
+    calls = {"eager": 0, "captured": 0}
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls["captured" if torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return all_reduce(*a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        cfg = load_config(ROOM_TRACKING, default_config_path())
+        apply_overrides(cfg, GRAPH_EQUAL_SET)
+        cfg["seed"] = 0
+        dev = torch.device("cuda", 0)
+        t0 = time.perf_counter()
+        slam = SLAMSystem(cfg, output=tempfile.mkdtemp(prefix="chip_smoke_dp_graph_"), device=dev)
+        frames = {i: slam.dataset[i] for i in sorted({0, *GRAPH_EQUAL_TRACK})}
+        setup_s = time.perf_counter() - t0
+        init = [t.detach().clone() for t in tree_leaves(slam.params)]
+        gen_state = slam.generator.get_state()
+        m, tr = slam.mapper, slam.tracker
+        shards = RayShards(size=1, ranks=(0,), group=dist.group.WORLD)
+
+        def run(mode, sh):
+            group = sh.group if sh is not None else None
+            m.shards = tr.shards = sh
+            m.graphs = StepGraphs(mode, dev, group=group)
+            tr.graphs = StepGraphs(mode, dev, group=group)
+            with torch.no_grad():
+                for t, v in zip(tree_leaves(slam.params), init):
+                    t.copy_(v)
+            slam.generator.set_state(gen_state)
+            for k in kernels:
+                k.launches = 0
+            calls.update(eager=0, captured=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, c, d, gt = frames[0]
+            _, _, _, first = m.optimize_map(slam.params, m.iters_first, m.lr_first_factor, 0,
+                                            slam._to_device(c)[None], slam._to_device(d)[None], np.asarray(gt)[None],
+                                            generator=slam.generator, cur_depth_np=np.asarray(d), cur_c2w_np=gt)
+            torch.cuda.synchronize()
+            map_s = time.perf_counter() - t0
+            leaves = [t.detach().clone() for t in tree_leaves(slam.params)]
+            est = np.zeros((max(GRAPH_EQUAL_TRACK) + 1, 4, 4), np.float32)
+            est[0] = frames[0][3]
+            poses, track_losses = [], []
+            t0 = time.perf_counter()
+            for idx in GRAPH_EQUAL_TRACK:
+                _, c, d, _ = frames[idx]
+                cam_t = torch.as_tensor(pose_tensor_from_matrix(tr.initial_pose(idx, est)), device=dev)
+                best, tl, _, _ = track_frame(
+                    slam.params, cam_t, slam._to_device(c), slam._to_device(d), tr.tsdf_volume, tr.tsdf_bnds,
+                    tr.bound, tr.cam, tr.rcfg, tr.tracking_pixels, tr.num_cam_iters, tr.ignore_edge_W,
+                    tr.ignore_edge_H, tr.handle_dynamic, tr.use_color, tr.w_color_loss, tr.cam_lr, tr.seperate_LR,
+                    tr.lr_final_factor, slam.generator, None, tr.grid_vjp, tr.adam_lazy, shards=sh, graphs=tr.graphs,
+                )
+                with torch.no_grad():
+                    est[idx] = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()
+                poses.append(best)
+                track_losses.append(tl)
+            torch.cuda.synchronize()
+            per_replay = [{k.name: n for k, n in prog[-1].launches.items()} for prog in m.graphs.programs.values()]
+            return dict(map_losses=torch.cat(list(first.values())), leaves=leaves, poses=torch.stack(poses),
+                        track_losses=torch.cat(track_losses), map_s=map_s, track_s=time.perf_counter() - t0,
+                        launches={k.name: k.launches for k in kernels}, all_reduce=dict(calls),
+                        map_graphs=m.graphs.stats(), track_graphs=tr.graphs.stats(),
+                        capture_mode=[m.graphs.capture_error_mode, tr.graphs.capture_error_mode],
+                        k1_per_replay=[r.get("halo_fold", 0) for r in per_replay])
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = {"eager_dp": run("eager", shards), "graph_dp": run("graph", shards),
+                   "graph_single": run("graph", None)}
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+
+    def compare(a, b):
+        def first_diff(x, y):
+            bad = torch.nonzero(x != y)
+            return int(bad[0, 0]) if len(bad) else None
+
+        return {
+            "map_losses": torch.equal(a["map_losses"], b["map_losses"]),
+            "map_leaves": all(torch.equal(x, y) for x, y in zip(a["leaves"], b["leaves"])),
+            "track_poses": torch.equal(a["poses"], b["poses"]),
+            "track_losses": torch.equal(a["track_losses"], b["track_losses"]),
+            "first_differing_map_iteration": first_diff(a["map_losses"], b["map_losses"]),
+            "first_differing_track_iteration": first_diff(a["track_losses"], b["track_losses"]),
+            "max_abs_diff_leaves": max(float((x - y).abs().max()) for x, y in zip(a["leaves"], b["leaves"])),
+            "max_abs_diff_poses": float((a["poses"] - b["poses"]).abs().max()),
+        }
+
+    out = {"setup_s": setup_s, "n_map_iters": len(res["eager_dp"]["map_losses"]),
+           "n_track_iters": len(res["eager_dp"]["track_losses"]), "n_leaves": len(init),
+           "graph_vs_eager": compare(res["graph_dp"], res["eager_dp"]),
+           "group_vs_single": compare(res["graph_dp"], res["graph_single"]), "runs": {}}
+    for name, r in res.items():
+        out["runs"][name] = {k: r[k] for k in ("map_s", "track_s", "launches", "all_reduce", "map_graphs",
+                                              "track_graphs", "capture_mode", "k1_per_replay")}
+        out["runs"][name]["last_map_loss"] = float(r["map_losses"][-1])
+    out["warnings"] = sorted({str(w.message).splitlines()[0][:160] for w in caught})
+    print(DP_GRAPH_TAG + json.dumps(out), flush=True)
+
+
+def phase_dp_graph(paths) -> None:
+    """Phase 21: ``dp_graph_child`` as a world of one on NCCL. Fails
+    unless the graphed dp run is ``torch.equal`` to the eager dp run in
+    map losses, final leaves, tracked poses and tracking losses; both of
+    its agents ran ``graph`` steps with captures and in ``thread_local``
+    capture mode; every mapping program launches K1 in a replay; and some
+    ``all_reduce`` calls were captured. Prints the graphed dp run against
+    the single-process graphed run (``torch.equal`` expected: a one-rank
+    sum is the identity; else the first differing iteration). The child's
+    launches are recorded as three paths."""
+    from attentive_dfprior_tpu_torch.tools import multihost_smoke as mh
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(mh.free_port()))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--dp-graph-child"], env=env,
+                          capture_output=True, text=True, timeout=900)
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("dp graph child:"):
+            print(ln)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(DP_GRAPH_TAG)]
+    if proc.returncode != 0 or not lines:
+        fail(f"dp graph child exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(lines[-1][len(DP_GRAPH_TAG):])
+    for name, run in res["runs"].items():
+        paths[f"dp_graph_{name}"] = run["launches"]
+        print(f"dp graph {name}: mapping {run['map_s']:.2f} s ({json.dumps(run['map_graphs'])}), tracking "
+              f"{run['track_s']:.2f} s ({json.dumps(run['track_graphs'])}), capture mode {run['capture_mode']}, "
+              f"all_reduce calls {json.dumps(run['all_reduce'])}, K1 a replay by mapping program "
+              f"{run['k1_per_replay']}, launches {json.dumps(run['launches'])}, last map loss {run['last_map_loss']:.6f}")
+    for msg in res["warnings"]:
+        print(f"dp graph: warning: {msg}")
+    print(f"dp graph ({' '.join(GRAPH_EQUAL_SET)}, frame 0's map {res['n_map_iters']} iterations, frames "
+          f"{list(GRAPH_EQUAL_TRACK)} tracked ({res['n_track_iters']} iterations), RayShards(1, (0,), WORLD) on NCCL; "
+          f"set-up {res['setup_s']:.1f} s): graphed against eager on the group {json.dumps(res['graph_vs_eager'])}")
+    print(f"dp graph: graphed on the group against graphed with no group (torch.equal expected: a one-rank sum "
+          f"is the identity) {json.dumps(res['group_vs_single'])}")
+    eq = res["graph_vs_eager"]
+    if not all(eq[k] for k in ("map_losses", "map_leaves", "track_poses", "track_losses")):
+        fail(f"dp graph: the graphed dp run differs from the eager dp run: {json.dumps(eq)}")
+    g = res["runs"]["graph_dp"]
+    if g["map_graphs"]["mode"] != "graph" or g["track_graphs"]["mode"] != "graph":
+        fail(f"dp graph: an agent on the NCCL group ran {g['map_graphs']['mode']} / {g['track_graphs']['mode']} steps")
+    if g["map_graphs"]["captures"] <= 0 or g["track_graphs"]["captures"] <= 0:
+        fail(f"dp graph: no capture: {json.dumps(g['map_graphs'])} {json.dumps(g['track_graphs'])}")
+    if g["capture_mode"] != ["thread_local", "thread_local"]:
+        fail(f"dp graph: capture modes {g['capture_mode']} on an NCCL group (thread_local expected)")
+    if not g["k1_per_replay"] or min(g["k1_per_replay"]) <= 0:
+        fail(f"dp graph: a mapping program launches no K1 a replay: {g['k1_per_replay']}")
+    if g["all_reduce"]["captured"] <= 0:
+        fail(f"dp graph: no all_reduce was captured: {json.dumps(g['all_reduce'])}")
+
+
 def phase_entry_loose(torch, dev, strict):
     """Phase 10(b): ``sync_method=loose`` through the entry point on frames
     0..15 as phase 4 runs them (loop closure on, panels every 5th frame),
@@ -1632,9 +1857,10 @@ def phase_scannet_read(configs_dir: str) -> None:
 
 def phase_pretrain(torch, dev, steps: int):
     """Phases 13(b) and 14: ``pretrain_decoders`` at its shipped widths for
-    ``steps`` steps to a temporary path; fails on a non-finite loss, a last
-    loss not below the first, K1 launches other than two a step, or an
-    ``.npz`` that does not load. Returns (the ``.npz`` path, losses)."""
+    ``steps`` steps to a temporary path, one graph replayed a step; fails
+    on a non-finite loss, a last loss not below the first, K1 launches
+    other than two a step (a replay counts its capture's), or an ``.npz``
+    that does not load. Returns (the ``.npz`` path, losses)."""
     from attentive_dfprior_tpu_torch.models.decoders import init_df_decoders, load_pretrained_npz
     from attentive_dfprior_tpu_torch.ops.cuda.halo_fold_kernel import KERNEL as K1
     from attentive_dfprior_tpu_torch.tools import pretrain_decoders
@@ -1655,6 +1881,51 @@ def phase_pretrain(torch, dev, steps: int):
     if dec["high"]["fc_c"][0]["w"].shape[0] != 64:
         fail("pretrain: the written high decoder does not take 64 features")
     return path, losses
+
+
+def phase_pretrain_modes(torch, dev) -> None:
+    """Phase 13(b), the pretrain's step program: PRETRAIN_EQUAL_STEPS
+    steps graphed and eager from the same seed (``pretrain_decoders.train``)
+    must be ``torch.equal`` in every loss and every final leaf, the graphed
+    run one capture replayed; then PRETRAIN_STEPS steps a rep, graphed and
+    eager in turns, PRETRAIN_TIMED_REPS reps each: ms a step over the
+    steps after the warm-up and the capture (``init_train``'s program, the
+    set-up outside the clock)."""
+    from attentive_dfprior_tpu_torch.tools import pretrain_decoders
+    from attentive_dfprior_tpu_torch.utils.step_graph import WARMUP_ITERS
+    from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
+
+    runs = {mode: pretrain_decoders.train(PRETRAIN_EQUAL_STEPS, device=dev, step_mode=mode)
+            for mode in ("graph", "eager")}
+    (pg, lg, gg), (pe, le, _) = runs["graph"], runs["eager"]
+    equal = {"losses": torch.equal(lg, le),
+             "leaves": all(torch.equal(a, b) for a, b in zip(tree_leaves(pg), tree_leaves(pe)))}
+    gap = max(float((a - b).detach().abs().max()) for a, b in zip(tree_leaves(pg), tree_leaves(pe)))
+    print(f"pretrain graphed against eager, {PRETRAIN_EQUAL_STEPS} steps: torch.equal {json.dumps(equal)}, "
+          f"max abs leaf diff {gap:.3e}, graphs {json.dumps(gg.stats())}")
+    if not all(equal.values()):
+        fail(f"pretrain: the graphed steps differ from the eager steps: {json.dumps(equal)}")
+    if gg.stats()["captures"] != 1 or gg.stats()["mode"] != "graph":
+        fail(f"pretrain: the graphed run is not one capture replayed: {json.dumps(gg.stats())}")
+    del runs, pg, pe, lg, le, gg
+    warm = WARMUP_ITERS + 1  # the graph's eager warm-ups and its capture, run before the clock
+    ms = {"graph": [], "eager": []}
+    for _ in range(PRETRAIN_TIMED_REPS):
+        for mode in ms:
+            _, losses, _, step = pretrain_decoders.init_train(PRETRAIN_STEPS, device=dev, step_mode=mode)
+            for _ in range(warm):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PRETRAIN_STEPS - warm):
+                step()
+            torch.cuda.synchronize()
+            ms[mode].append(round(1e3 * (time.perf_counter() - t0) / (PRETRAIN_STEPS - warm), 4))
+            if not bool(torch.isfinite(losses).all()):
+                fail(f"pretrain {mode}: a non-finite loss")
+    med = {m: float(np.median(v)) for m, v in ms.items()}
+    print(f"pretrain in turns, steps {warm + 1}-{PRETRAIN_STEPS} of each rep timed: ms a step graphed {ms['graph']}, "
+          f"eager {ms['eager']}; medians {med['graph']:.4f} / {med['eager']:.4f} ({med['eager'] / med['graph']:.2f}x)")
 
 
 def visible_vertices(verts, faces, poses, cam, tol: float = 0.02):
@@ -1905,7 +2176,7 @@ def phase_dp(torch, paths) -> None:
         if not g["ok"]:
             fail(f"dp (b): {key}: the dp run parts from the single run by {g['dp']:.4g} (witness {g['witness']}, "
                  f"limit {g['limit']:.4g})")
-    if any(r["step_mode"] != "eager" for r in ranks):
+    if any(set(r["step_mode"].values()) != {"eager"} for r in ranks):
         fail(f"dp (b): a dp rank ran {[r['step_mode'] for r in ranks]} steps: gloo collectives run eager")
     if not all(r["dp"] for r in ranks) or any(r["launches"]["halo_fold"] <= 0 for r in ranks):
         fail(f"dp (b): not both ranks ran dp mapping through K1: {[(r['dp'], r['launches']) for r in ranks]}")
@@ -2021,8 +2292,8 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
             fail(f"async ranks (a) rank {res['rank']}: the final scene differs from strict's on 2 ranks")
         if any(run["launches"]["halo_fold"] <= 0 for run in res["runs"].values()):
             fail(f"async ranks (a) rank {res['rank']}: a run mapped without K1")
-        if any(run["step_mode"] != "eager" for run in res["runs"].values()):
-            fail(f"async ranks (a) rank {res['rank']}: a dp run did not run eager steps")
+        if any(set(run["step_mode"].values()) != {"eager"} for run in res["runs"].values()):
+            fail(f"async ranks (a) rank {res['rank']}: a dp run on gloo did not run eager steps")
     lead, follower = sorted(ranks, key=lambda r: r["rank"])
     for sync in ("strict", "loose", "free"):
         if lead["runs"][sync]["digest"] != follower["runs"][sync]["digest"]:
@@ -2067,6 +2338,9 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
         fail("async ranks (b) split: a non-finite loss")
     if float(gap.max()) > SPLIT_TRAJ_GATE_M:
         fail(f"async ranks (b) split: the trajectory parts from phase 4's strict run by {100 * gap.max():.2f} cm")
+    if any(set(r["step_mode"].values()) != {"graph"} for r in ranks):
+        fail(f"async ranks (b) split: a rank ran eager steps ({[r['step_mode'] for r in ranks]}): each agent is "
+             "alone in its group, so both graph")
 
 
 def phase_harnesses(torch, drive, paths) -> None:
@@ -2149,17 +2423,25 @@ def phase_harnesses(torch, drive, paths) -> None:
             fail(f"profile {name} (scannet): non-finite output")
     print(f"profile_mapping cell_scatter rows at the ScanNet shape: {time.perf_counter() - t0:.1f} s")
 
-    # (c) dp scaling, a world of one
+    # (c) dp scaling, a world of one, graphed and eager in turns
     t0 = time.perf_counter()
-    scal = bench_scaling.main(["--devices", "1", "--pixels", SCALING_PIXELS,
-                               "--out", os.path.join(work, "scaling.json")])
+    scal = bench_scaling.main(["--devices", "1", "--pixels", SCALING_PIXELS, "--reps", str(SCALING_REPS),
+                               "--step-modes", "graph,eager", "--out", os.path.join(work, "scaling.json")])
     for rec in scal["raw"]:
         paths[f"scaling_{rec['base_pixels']}px"] = rec["launches"]
-        print(f"scaling n=1 {rec['base_pixels']} rays ({rec['backend']}, {rec['device']}): {rec['rays_per_s']:.1f} "
-              f"rays/s, {1e3 * rec['step_s']:.3f} ms a step, {rec['grad_bytes_per_step']} gradient bytes a step, "
-              f"launches {json.dumps(rec['launches'])}")
+        by = rec["by_mode"]
+        print(f"scaling n=1 {rec['base_pixels']} rays ({rec['backend']}, {rec['device']}, headline "
+              f"{rec['step_mode']} steps, {SCALING_REPS} reps a mode in turns): graphed "
+              f"{by['graph']['rays_per_s']:.1f} rays/s ({1e3 * by['graph']['step_s']:.3f} ms a step, "
+              f"{json.dumps(by['graph']['graphs'])}), eager {by['eager']['rays_per_s']:.1f} rays/s "
+              f"({1e3 * by['eager']['step_s']:.3f} ms a step): "
+              f"{by['graph']['rays_per_s'] / by['eager']['rays_per_s']:.2f}x; {rec['grad_bytes_per_step']} gradient "
+              f"bytes a step, launches {json.dumps(rec['launches'])}")
         if not rec["losses_finite"] or rec["launches"]["halo_fold"] <= 0:
             fail(f"scaling {rec['base_pixels']} rays: finite {rec['losses_finite']}, launches {rec['launches']}")
+        if rec["step_mode"] != "graph" or by["graph"]["graphs"]["captures"] <= 0:
+            fail(f"scaling {rec['base_pixels']} rays: the one-rank baseline ran {rec['step_mode']} steps "
+                 f"({json.dumps(by['graph']['graphs'])}): graphed expected")
     model = scal["comm_model"]
     print(f"scaling comm model (a prediction, not a measurement; {model['device_kind']}, "
           f"{model['assumed_link_bw_bidi_bytes_per_s'] / 1e9:.0f} GB/s bidirectional a GPU, from the measured "
@@ -2188,16 +2470,20 @@ def phase_ablation(work: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,10,12,13,15,16,17,19",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,10,12,13,15,16,17,19,21",
                     help="comma-separated phases to run (8, 9, 11, 14, 18 and 20 only on request)")
     ap.add_argument("--async-equal-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--graph-equal-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-graph-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.async_equal_child:
         async_equal_child()
         return
     if args.graph_equal_child:
         graph_equal_child()
+        return
+    if args.dp_graph_child:
+        dp_graph_child()
         return
     phases = {int(x) for x in args.phases.split(",")}
     if 7 in phases and 4 not in phases:
@@ -2274,6 +2560,9 @@ def main() -> None:
     if 19 in phases:
         phase_graph_equal(paths)
         done(19)
+    if 21 in phases:
+        phase_dp_graph(paths)
+        done(21)
     if 6 in phases:
         drive("determinism", phase_determinism, torch, dev)
         done(6)
@@ -2306,6 +2595,7 @@ def main() -> None:
     if 13 in phases:
         phase_scannet_read(configs_dir)
         drive("pretrain", phase_pretrain, torch, dev, PRETRAIN_STEPS)
+        drive("pretrain_modes", phase_pretrain_modes, torch, dev)
         phase_refuse(torch, dev, replica)
         phase_convert(torch, replica)
         done(13)

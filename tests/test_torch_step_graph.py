@@ -20,7 +20,7 @@ the same step runs eagerly, and it is held:
      the earlier loops;
   4. every static buffer at one address across iterations, stages and
      frames, and ``resume`` dropping the cached programs;
-  5. graphs asked for on the CPU (or under dp) raise.
+  5. graphs asked for on the CPU (or on a dp agent's gloo group) raise.
 
 Also: the launch accounting of a replay on a stub graph (the launches a
 capture records are added at every replay, none at the capture), the
@@ -373,7 +373,7 @@ def system_runs(tmp_path_factory):
 
 def test_strict_run_equals_the_loops(system_runs):
     new, old, _ = system_runs
-    assert new.step_mode == "eager"
+    assert new.step_mode == {"map": "eager", "track": "eager"}
     for a, b in zip(tree_leaves(new.params), tree_leaves(old.params)):
         assert torch.equal(a.detach(), b.detach())
     np.testing.assert_array_equal(new.estimate_c2w_list[:4], old.estimate_c2w_list[:4])
@@ -414,15 +414,17 @@ def test_static_buffers_keep_their_addresses_and_resume_drops_programs(system_ru
 # ---------------------------------------------------------------- 5. no graphs
 
 
-def test_graphs_on_the_cpu_raise(tmp_path):
+def test_graphs_on_the_cpu_raise(tmp_path, monkeypatch):
     assert resolve_step_mode(None, "cpu") == "eager" and resolve_step_mode("eager", "cpu") == "eager"
     for call in (lambda: resolve_step_mode("graph", "cpu"), lambda: StepGraphs("graph", "cpu"),
                  lambda: SLAMSystem(tiny_room_cfg(), output=str(tmp_path), device="cpu", step_mode="graph")):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    with pytest.raises(ValueError, match="dp"):
-        resolve_step_mode("graph", "cuda", dp=True)
-    assert resolve_step_mode(None, "cuda", dp=True) == "eager"
+    gloo = object()  # a dp agent's group on gloo, whose collectives a graph cannot hold
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda group=None: "gloo")
+    with pytest.raises(ValueError, match="gloo"):
+        resolve_step_mode("graph", "cuda", gloo)
+    assert resolve_step_mode(None, "cuda", gloo) == "eager"
     with pytest.raises(ValueError, match="not one of"):
         resolve_step_mode("jit", "cpu")
 
