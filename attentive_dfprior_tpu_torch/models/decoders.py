@@ -14,10 +14,13 @@ dict/list tree as the JAX pytree, with the same layouts:
 through K2, the hand-written CUDA decoder kernel, on a CUDA tensor and
 through its plain version on a CPU tensor. ``grid_vjp`` names the
 feature grids' gradient variant (``ops/grid_sample.py:GRID_VJPS``).
+``query_points`` runs ``eval_points_chunk`` in padded chunks, each a replay
+of one captured program on the card (``utils/step_graph.py:ForwardGraphs``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -33,6 +36,7 @@ from attentive_dfprior_tpu_torch.ops.grid_sample import (
     sample_feature_grid_pair,
     trilinear_sample_tsdf,
 )
+from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs, pad_rows, tensor_key
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 EMBED_SIZE = 93
@@ -259,11 +263,80 @@ def df_forward(
 
 def eval_points_chunk(params, pts, tsdf_volume, tsdf_bnds, bound, stage, fused=False):
     """One chunk of the point query: ``df_forward`` plus the reference's
-    out-of-bound occ = 100 wall (ref: src/utils/Renderer.py:27-71)."""
+    out-of-bound occ = 100 wall (ref: src/utils/Renderer.py:27-71). On the
+    card it is the body of the point-query program that every chunk
+    replays (``query_points``), as the JAX package jits it."""
     raw, _ = df_forward(params, pts, params, tsdf_volume, tsdf_bnds, bound, stage, fused=fused)
     inside = torch.all((pts > bound[:, 0]) & (pts < bound[:, 1]), dim=-1)
     occ = torch.where(inside, raw[:, 3], torch.full_like(raw[:, 3], 100.0))
     return torch.cat([raw[:, :3], occ[:, None]], dim=-1)
+
+
+# the decoders each stage of ``df_forward`` reads
+STAGE_DECODERS = {"low": ("low",), "high": ("low", "high"), "color": ("low", "high", "color")}
+
+
+def stage_images(scene: Dict[str, Any], stage: str):
+    """A program's static K2 weight images of the decoders of ``scene``
+    that ``stage`` reads (``ops/cuda/decoder_kernel.py:StaticImages``)."""
+    from attentive_dfprior_tpu_torch.ops.cuda.decoder_kernel import StaticImages
+
+    return StaticImages([scene[name] for name in STAGE_DECODERS[stage]])
+
+
+class _PointProgram:
+    """One captured chunk of ``eval_points_chunk`` (no gradient): static
+    points in, static raw (rgb, occ) out; with ``fused``, K2 reads the
+    program's static weight images, refreshed before every run."""
+
+    def __init__(self, graphs, scene, tsdf_volume, tsdf_bnds, bound, stage: str, batch: int, fused: bool):
+        dev = tsdf_bnds.device
+        self.pts = torch.zeros((batch, 3), dtype=torch.float32, device=dev)
+        self.out = torch.empty((batch, 4), dtype=torch.float32, device=dev)
+        self.images = stage_images(scene, stage) if fused else None
+
+        def step():
+            with torch.no_grad(), self.images.pinned() if fused else contextlib.nullcontext():
+                self.out.copy_(eval_points_chunk(scene, self.pts, tsdf_volume, tsdf_bnds, bound, stage, fused=fused))
+
+        self.graph = graphs.step_graph(step)
+
+    def __call__(self, pts: torch.Tensor) -> torch.Tensor:
+        m = pts.shape[0]
+        self.pts[:m].copy_(pts)
+        if m < self.pts.shape[0]:
+            self.pts[m:].zero_()
+        if self.images is not None:
+            self.images.refresh()
+        self.graph()
+        return self.out
+
+
+@torch.no_grad()
+def query_points(graphs: ForwardGraphs, params, pts: torch.Tensor, tsdf_volume: torch.Tensor,
+                 tsdf_bnds: torch.Tensor, bound: torch.Tensor, stage: str, batch: int, fused: bool) -> torch.Tensor:
+    """The point query in chunks of ``batch`` points, the last chunk padded
+    with zeros as the JAX package pads it: raw (N, 4) on the points'
+    device, with the out-of-bound occ = 100 wall. Graphed (``graphs`` in
+    ``graph`` mode), every chunk is a replay of one program of
+    ``eval_points_chunk``; eager, each chunk runs in Python."""
+    n = pts.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return out
+    if graphs.graphed:
+        scene = graphs.scene(params)
+        key = ("points", stage, batch, fused, tensor_key(scene, tsdf_volume, tsdf_bnds, bound))
+        run = graphs.program(key, lambda g: _PointProgram(g, scene, tsdf_volume, tsdf_bnds, bound, stage, batch,
+                                                         fused))
+    else:
+        def run(chunk):
+            return eval_points_chunk(params, pad_rows(chunk, batch, 0.0), tsdf_volume, tsdf_bnds, bound, stage,
+                                     fused=fused)
+    for i in range(0, n, batch):
+        m = min(batch, n - i)
+        out[i : i + m] = run(pts[i : i + m].contiguous())[:m]
+    return out
 
 
 def load_pretrained_npz(decoders: Dict[str, Any], path: str) -> Dict[str, Any]:

@@ -12,14 +12,18 @@ whole k8 steps, K rows permuted to the kernel's register fragments, split
 into TF32 hi and lo parts, in wgmma's no-swizzle core-matrix layout.
 ``TC_CACHE`` builds it once per decoder and parameter version (the leaves'
 ``_version``, which a CUDA graph's replay that writes them also advances,
-``utils/step_graph.py``).
+``utils/step_graph.py``). Inside a render or point-query program
+(``utils/step_graph.py:ForwardGraphs``) K2 reads a static image of the
+program's instead (``StaticImages``, ``pinned_images``): a capture cannot
+build one, and a graph keeps the address of the image it read.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -265,6 +269,67 @@ class _TcCache:
 
 TC_CACHE = _TcCache()  # the weight images of every decoder the process runs through K2
 
+_PINNED = threading.local()
+
+
+@contextlib.contextmanager
+def pinned_images(pins: Sequence[Tuple[List[torch.Tensor], torch.Tensor]]) -> Iterator[None]:
+    """Within the block (on this thread), K2 reads a decoder whose leaves
+    are ``leaves`` (compared with ``is``) from ``image`` for each
+    (leaves, image) of ``pins``, and never asks ``TC_CACHE``: a program's
+    static images, kept current outside its capture."""
+    prev = getattr(_PINNED, "pins", ())
+    _PINNED.pins = tuple(pins)
+    try:
+        yield
+    finally:
+        _PINNED.pins = prev
+
+
+def _pinned(leaves: List[torch.Tensor]) -> Optional[torch.Tensor]:
+    for held, image in getattr(_PINNED, "pins", ()):
+        if len(held) == len(leaves) and all(a is b for a, b in zip(held, leaves)):
+            return image
+    return None
+
+
+class StaticImages:
+    """The static K2 weight images of one captured program, one per decoder
+    tree in ``decoders`` (the program's static scene).
+
+    ``TC_CACHE`` builds a new image tensor whenever a decoder's leaves
+    change (the mapper writes them between two renders), and a build
+    copies index tables from the host, which no capture allows; a graph
+    bakes in the address of the image it read. So the program reads images
+    of its own: ``refresh``, called outside any capture before the program
+    runs, asks the cache for each decoder's current image and copies it
+    into the static image when it is not the image last copied; within
+    ``pinned()`` K2 reads the static images."""
+
+    def __init__(self, decoders: Sequence[Any]):
+        self.decoders = list(decoders)
+        self.images: List[torch.Tensor] = []
+        self._copied: List[Optional[torch.Tensor]] = []  # the cache's image last copied into each
+        self.copies = 0
+
+    def refresh(self) -> None:
+        with torch.no_grad():
+            for i, dec in enumerate(self.decoders):
+                image = TC_CACHE.get(dec)
+                if i == len(self.images):
+                    self.images.append(torch.empty_like(image))
+                    self._copied.append(None)
+                elif self.images[i].shape != image.shape:
+                    raise ValueError(f"K2 weight image of {tuple(image.shape)} for a program captured at "
+                                     f"{tuple(self.images[i].shape)}")
+                if self._copied[i] is not image:
+                    self.images[i].copy_(image)
+                    self._copied[i] = image
+                    self.copies += 1
+
+    def pinned(self) -> contextlib.AbstractContextManager:
+        return pinned_images([(tree_leaves(d), im) for d, im in zip(self.decoders, self.images)])
+
 
 # ---------------------------------------------------------------------------
 # Entry points
@@ -311,14 +376,17 @@ def fused_decoder_forward(params: Dict[str, Any], p: torch.Tensor, c: torch.Tens
 
 
 def _cuda_forward(name: str, weights, p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """The entry points' CUDA path: K2 on the weight image from ``TC_CACHE``
-    (built once per decoder and parameter version)."""
+    """The entry points' CUDA path: K2 on the pinned image
+    (``pinned_images``) or the weight image from ``TC_CACHE`` (built once
+    per decoder and parameter version)."""
     if p.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {p.device}")
     packed = isinstance(weights, PackedMLP)
     out_dim = (weights.Wout if packed else weights["out"]["w"]).shape[-1]
-    _check(name, p, c, list(weights) if packed else tree_leaves(weights), out_dim)
-    return fused_mlp_launch(TC_CACHE.get(weights), p, c, out_dim)
+    leaves = list(weights) if packed else tree_leaves(weights)
+    _check(name, p, c, leaves, out_dim)
+    image = _pinned(leaves)
+    return fused_mlp_launch(TC_CACHE.get(weights) if image is None else image, p, c, out_dim)
 
 
 def fused_mlp_launch(w: torch.Tensor, p: torch.Tensor, c: torch.Tensor, out_dim: int) -> torch.Tensor:

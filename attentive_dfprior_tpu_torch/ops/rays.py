@@ -138,6 +138,7 @@ def sample_pdf(
     N_samples: int,
     det: bool = False,
     generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Hierarchical sampling by the inverse CDF (ref: src/common.py:21-65).
 
@@ -146,7 +147,7 @@ def sample_pdf(
             they are normalized (the reference's call: bins are the z
             midpoints, weights the interior sample weights).
         det: ``u`` on ``linspace(0, 1, N_samples)``; else uniform draws
-            from ``generator``.
+            from ``generator``, or the (B, N_samples) draws ``u`` given.
 
     Returns:
         (B, N_samples) resampled positions. ``u`` = 0 or 1 sits on the
@@ -160,7 +161,7 @@ def sample_pdf(
     shape = cdf.shape[:-1] + (N_samples,)
     if det:
         u = torch.linspace(0.0, 1.0, N_samples, dtype=cdf.dtype, device=cdf.device).expand(shape).contiguous()
-    else:
+    elif u is None:
         u = torch.rand(shape, generator=generator, dtype=cdf.dtype, device=cdf.device)
 
     inds = torch.searchsorted(cdf, u, right=True)

@@ -19,8 +19,10 @@ from the latest checkpoint under ``<output>/ckpts`` (either package's).
 ``--adam-nonlazy`` steps every Adam leaf in every iteration: the JAX
 package's ``DFPRIOR_TRILINEAR_VJP`` and ``DFPRIOR_ADAM_LAZY=0``. On the card
 each mapping stage's and each tracked frame's iteration is captured once
-as a CUDA graph and replayed (``utils/step_graph.py``); ``--eager`` runs
-it in Python instead. A dp agent on NCCL replays its graphs with the
+as a CUDA graph and replayed (``utils/step_graph.py``), and so is each
+chunk of the renders (panels) and of the Mesher's field queries;
+``--eager`` runs them all in Python instead. The run ends with a line of
+what the render programs captured and replayed. A dp agent on NCCL replays its graphs with the
 all-reduce inside; an agent on a gloo group (``--device cpu``, or gloo
 asked for by name) always runs eager. ``--set``
 overrides config entries after loading (values parsed as YAML scalars),
@@ -41,6 +43,7 @@ and exits.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import random
 from typing import Any, Dict, List, Optional
@@ -86,7 +89,8 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--adam-nonlazy", action="store_true",
                         help="step every Adam leaf each iteration (no per-leaf lazy rule)")
     parser.add_argument("--eager", action="store_true",
-                        help="run each iteration in Python, not as a replayed CUDA graph")
+                        help="run each iteration, render chunk and field-query chunk in Python, "
+                        "not as a replayed CUDA graph")
     parser.add_argument("--multihost", action="store_true",
                         help="join the process group from the launcher's environment "
                         "(equivalent to parallel.multihost: True)")
@@ -134,6 +138,7 @@ def main(argv: Optional[List[str]] = None):
             start = slam.resume(ckpt)
             print(f"Resumed from {ckpt}; continuing at frame {start}")
     slam.run(start_idx=start, end_idx=args.end_idx)
+    print(f"render and field-query programs: {json.dumps(slam.forward_graphs.stats())}", flush=True)
     return slam
 
 

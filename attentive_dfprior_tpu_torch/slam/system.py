@@ -82,6 +82,7 @@ from attentive_dfprior_tpu_torch.utils.device import resolve_device
 from attentive_dfprior_tpu_torch.utils.logger import Logger, load_checkpoint
 from attentive_dfprior_tpu_torch.utils.mesher import Mesher
 from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer
+from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 from attentive_dfprior_tpu_torch.utils.visualizer import Visualizer
 
@@ -174,7 +175,12 @@ class SLAMSystem:
             alone in its group) or on an NCCL group, ``eager`` on a gloo
             group, whose collectives cannot be captured. ``graph`` on the
             CPU or on a gloo group raises. ``self.step_mode`` says which
-            ran: {"map": the mapper's mode, "track": the tracker's}.
+            ran: {"map": the mapper's mode, "track": the tracker's}. The
+            renders and the Mesher's field queries (``forward_graphs``,
+            ``utils/step_graph.py:ForwardGraphs``) replay one program a
+            chunk in ``graph`` mode, the default on a CUDA device whatever
+            the group, and run eager with ``eager``; ``forward_graphs.stats()``
+            says what they captured and replayed.
 
     Pixel draws: the mapper (and loop closure's relaxation, which runs
     after a mapped frame) draws from ``self.generator``. In strict mode the
@@ -274,9 +280,12 @@ class SLAMSystem:
             perturb=float(r["perturb"]),
             occupancy=bool(cfg.get("occupancy", True)),
         )
-        self.renderer = Renderer(self.rcfg, self.scene_cfg.bound, self.tsdf_bnds, self.cam, self.device)
         # graphed or eager steps (utils/step_graph.py), each agent's by its own group
         concurrent = self.sync_method != "strict"
+        # the renders' and the Mesher's no-gradient programs, one set per calling thread, in the run's mode
+        self.forward_graphs = ForwardGraphs(step_mode, self.device, concurrent=concurrent)
+        self.renderer = Renderer(self.rcfg, self.scene_cfg.bound, self.tsdf_bnds, self.cam, self.device,
+                                 graphs=self.forward_graphs)
         self.mapper = Mapper(
             cfg, self.cam, self.scene_cfg, self.rcfg, self.tsdf_volume, self.tsdf_bnds, self.device,
             grid_vjp=grid_vjp, adam_lazy=adam_lazy, shards=self.shards if self.groups is None else self.groups.map,
@@ -288,7 +297,8 @@ class SLAMSystem:
             step_mode=step_mode, concurrent=concurrent,
         )
         self.step_mode = {"map": self.mapper.step_mode, "track": self.tracker.step_mode}
-        self.mesher = Mesher(cfg, self.cam, self.scene_cfg.bound, self.tsdf_bnds, self.device)
+        self.mesher = Mesher(cfg, self.cam, self.scene_cfg.bound, self.tsdf_bnds, self.device,
+                             graphs=self.forward_graphs)
         self.logger = Logger(os.path.join(self.output, "ckpts"), self.verbose)
         self.visualizer = Visualizer(
             freq=int(cfg["mapping"]["vis_freq"]),

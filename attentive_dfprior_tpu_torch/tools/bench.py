@@ -222,7 +222,7 @@ def measure_workload(name: str, reps: int = 5, device=None, grid_vjp: str = "hal
     ``default_modes`` its scene and one warm-up cycle, then ``reps`` timed
     cycles per mode, the modes in turns. Returns {mode: record}
     (``_flops_fwd_per_point`` is for ``main``)."""
-    from attentive_dfprior_tpu_torch.ops.cuda.build import port_kernels
+    from attentive_dfprior_tpu_torch.ops.cuda.build import step_kernels
     from attentive_dfprior_tpu_torch.utils.step_graph import graph_pool_bytes
 
     dev = resolve_device(device)
@@ -248,7 +248,7 @@ def measure_workload(name: str, reps: int = 5, device=None, grid_vjp: str = "hal
     _sync(dev)
     build_s = time.perf_counter() - t0
     inputs = allocated() - held  # the workload's inputs, which both modes read
-    kernels = port_kernels()
+    kernels = step_kernels()
     cycles, warmup_s, finite, pool, resident, peak = {}, {}, {}, {}, {}, {}
     for m in modes:
         base = start()

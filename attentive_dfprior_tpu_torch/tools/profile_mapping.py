@@ -243,10 +243,10 @@ def time_rows_in_turns(runs: List[Callable[[int], Any]], n: int, reps: int,
                        device: torch.device) -> List[Dict[str, Any]]:
     """``time_row`` for several rows, their timings in turns (a, b, b, a,
     ...), so that they meet the same drift of the host."""
-    from attentive_dfprior_tpu_torch.ops.cuda.build import port_kernels
+    from attentive_dfprior_tpu_torch.ops.cuda.build import step_kernels
     from attentive_dfprior_tpu_torch.utils.step_graph import WARMUP_ITERS
 
-    kernels = port_kernels()
+    kernels = step_kernels()
     finite, times, launches = [], [[] for _ in runs], [None] * len(runs)
     for run in runs:
         out = run(WARMUP_ITERS + 1)

@@ -1,8 +1,9 @@
 """Volumetric TSDF fusion of RGB-D frames — the classical depth prior.
 
 The port of the JAX package's ``tsdf/fusion.py`` (the reference's CUDA
-kernel, ref: src/fusion.py:69-144, as one vectorized pass of tensor ops per
-frame). Semantics:
+kernel, ref: src/fusion.py:69-144): on the card one in-place hand-written
+kernel per frame (K5, ``ops/cuda/tsdf_kernel.py``), on the CPU its plain
+version, one vectorized pass of tensor ops. Semantics:
 
   - tsdf init -1, weight init 0 (ref: fusion.py:52-54);
   - truncation margin 5 * voxel_size (ref: fusion.py:38);
@@ -23,11 +24,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from attentive_dfprior_tpu_torch.ops.cuda import tsdf_kernel
 from attentive_dfprior_tpu_torch.utils.marching_cubes import _vertex_normals, marching_cubes
 from attentive_dfprior_tpu_torch.utils.mesh import reindex_mesh
 
 
-@torch.no_grad()
 def integrate_frame(
     tsdf: torch.Tensor,
     weight: torch.Tensor,
@@ -41,7 +42,9 @@ def integrate_frame(
     trunc_margin: float,
     obs_weight: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fuse one RGB-D frame into the volume, in place.
+    """Fuse one RGB-D frame into the volume, in place: on the card K5, one
+    hand-written kernel (``ops/cuda/tsdf_kernel.py``, the JAX package's
+    donated ``jax.jit`` loop); on the CPU its plain version.
 
     Args:
         tsdf / weight: (X, Y, Z) float32; color: (X, Y, Z, 3) float32.
@@ -54,47 +57,9 @@ def integrate_frame(
     Returns:
         (tsdf, weight, color), the updated input tensors.
     """
-    X, Y, Z = tsdf.shape
-    H, W = depth_im.shape
-    dev, f32 = tsdf.device, tsdf.dtype
-    vx = torch.arange(X, device=dev, dtype=torch.int32).view(X, 1, 1).expand(X, Y, Z)
-    vy = torch.arange(Y, device=dev, dtype=torch.int32).view(1, Y, 1).expand(X, Y, Z)
-    vz = torch.arange(Z, device=dev, dtype=torch.int32).view(1, 1, Z).expand(X, Y, Z)
-    px = vol_origin[0] + vx.to(f32) * voxel_size
-    py = vol_origin[1] + vy.to(f32) * voxel_size
-    pz = vol_origin[2] + vz.to(f32) * voxel_size
-    cx_ = w2c[0, 0] * px + w2c[0, 1] * py + w2c[0, 2] * pz + w2c[0, 3]
-    cy_ = w2c[1, 0] * px + w2c[1, 1] * py + w2c[1, 2] * pz + w2c[1, 3]
-    cz_ = w2c[2, 0] * px + w2c[2, 1] * py + w2c[2, 2] * pz + w2c[2, 3]
-    del px, py, pz
-
-    safe_z = torch.where(cz_ == 0, torch.full_like(cz_, 1e-8), cz_)
-    u = torch.round(intr[0, 0] * (cx_ / safe_z) + intr[0, 2]).to(torch.int64)
-    v = torch.round(intr[1, 1] * (cy_ / safe_z) + intr[1, 2]).to(torch.int64)
-    in_frustum = (u >= 0) & (u < W) & (v >= 0) & (v < H) & (cz_ > 0)
-    lin = torch.clamp(v, 0, H - 1) * W + torch.clamp(u, 0, W - 1)
-    del u, v
-    depth_val = depth_im.reshape(-1)[lin]
-    depth_val = torch.where(in_frustum, depth_val, torch.zeros_like(depth_val))
-
-    depth_diff = depth_val - cz_
-    valid = (depth_val > 0) & (depth_diff >= -trunc_margin)
-    dist = torch.clamp(depth_diff / trunc_margin, max=1.0)
-
-    w_old = weight
-    w_new = torch.where(valid, w_old + obs_weight, w_old)
-    denom = torch.where(valid, w_new, torch.ones_like(w_new))
-    tsdf.copy_(torch.where(valid, (tsdf * w_old + obs_weight * dist) / denom, tsdf))
-    col = color_im.reshape(-1, 3)[lin]
-    color.copy_(
-        torch.where(
-            valid[..., None],
-            torch.clamp(torch.round((color * w_old[..., None] + obs_weight * col) / denom[..., None]), max=255.0),
-            color,
-        )
+    return tsdf_kernel.integrate(
+        tsdf, weight, color, depth_im, color_im, intr, w2c, vol_origin, voxel_size, trunc_margin, obs_weight
     )
-    weight.copy_(w_new)
-    return tsdf, weight, color
 
 
 class TSDFVolume:

@@ -5,8 +5,11 @@ The port of the JAX package's ``utils/mesher.py`` (ref: src/utils/Mesher.py):
   - occupancy queried on a uniform lattice through ``eval_points_chunk``
     (stage 'high') in chunks of ``points_batch_size`` points, with the
     decoder MLPs through K2 on the card (``use_fused``) and through the
-    plain MLP on the CPU; points outside the hull take occ = 100 and are
-    not queried (the JAX package queries and then overwrites them);
+    plain MLP on the CPU; on the card every chunk replays one captured
+    program, the last chunk padded with zeros as the JAX package pads it
+    (``models/decoders.py:query_points``; an eager ``ForwardGraphs`` runs
+    each chunk in Python); points outside the hull take occ = 100 and are not
+    queried (the JAX package queries and then overwrites them);
   - the scene hull from keyframe depth back-projections and camera centres
     (ref: Mesher.py:219-284, without open3d);
   - hull-sheet artifacts dropped by a second field query at the vertices
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from attentive_dfprior_tpu_torch.camera import Camera
-from attentive_dfprior_tpu_torch.models.decoders import eval_points_chunk
+from attentive_dfprior_tpu_torch.models.decoders import query_points
 from attentive_dfprior_tpu_torch.utils.marching_cubes import marching_cubes
 from attentive_dfprior_tpu_torch.utils.mesh import (
     convex_hull_mesh,
@@ -39,6 +42,7 @@ from attentive_dfprior_tpu_torch.utils.mesh import (
     reindex_mesh,
 )
 from attentive_dfprior_tpu_torch.utils.ply import write_ply
+from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs
 
 
 class Mesher:
@@ -49,6 +53,8 @@ class Mesher:
         device: where the field is queried.
         use_native: marching tetrahedra in C++ (built with g++ on first use)
             or the numpy golden.
+        graphs: the field query's programs, as the Renderer's
+            (``render/renderer.py:Renderer``).
     """
 
     def __init__(
@@ -60,6 +66,7 @@ class Mesher:
         device: torch.device,
         points_batch_size: int = 2**17,
         use_native: bool = True,
+        graphs: Optional[ForwardGraphs] = None,
     ):
         mcfg = cfg["meshing"]
         self.cam = cam
@@ -75,6 +82,7 @@ class Mesher:
         self.points_batch_size = points_batch_size
         # a pure forward query: K2 on the card, as Renderer.use_fused
         self.use_fused = self.device.type == "cuda"
+        self.graphs = graphs if graphs is not None else ForwardGraphs(None, self.device)
         self.use_native = use_native
         self.scale = float(cfg.get("scale", 1))
         self.marching_cubes_bound = np.array(cfg["mapping"]["marching_cubes_bound"], dtype=np.float64) * self.scale
@@ -97,14 +105,8 @@ class Mesher:
         raw outputs on the host."""
         t0 = time.perf_counter()
         pts = torch.as_tensor(np.asarray(points, dtype=np.float32), device=self.device)
-        bs = self.points_batch_size
-        outs = [
-            eval_points_chunk(
-                params, pts[i : i + bs], tsdf_volume, self.tsdf_bnds, self.bound, stage, fused=self.use_fused
-            )
-            for i in range(0, len(pts), bs)
-        ]
-        out = torch.cat(outs).cpu().numpy() if outs else np.zeros((0, 4), np.float32)
+        out = query_points(self.graphs, params, pts, tsdf_volume, self.tsdf_bnds, self.bound, stage,
+                           self.points_batch_size, self.use_fused).cpu().numpy()
         self._field_s += time.perf_counter() - t0
         return out
 

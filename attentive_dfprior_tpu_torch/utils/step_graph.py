@@ -53,6 +53,9 @@ queries the events of other work while a capture runs, which a capture in
 ``global`` mode takes for an illegal call, so such an agent captures in
 ``thread_local`` mode too.
 
+``ForwardGraphs`` holds the no-gradient programs of the renders and the
+point queries the same way, one ``StepGraphs`` per calling thread.
+
 A replay writes its tensors in place without PyTorch seeing it, so it
 advances the ``_version`` of the tensors its program names as written (the
 parameters it updates): readers that key on ``_version``, as K2's weight
@@ -62,6 +65,8 @@ as they see an eager step's.
 
 from __future__ import annotations
 
+import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Sequence
 
@@ -109,6 +114,15 @@ def graph_pool_bytes() -> int:
         return 0
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def pool_bytes(pool) -> int:
+    """Device bytes the caching allocator holds in the graph pool ``pool``
+    (a ``torch.cuda.graph_pool_handle()``); 0 without CUDA or a pool."""
+    if pool is None or not torch.cuda.is_available():
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool))
 
 
 def tensor_key(*trees: Any) -> tuple:
@@ -221,8 +235,9 @@ class StepGraphs:
         concurrent: another thread may launch work while this agent
             captures (the async modes): captures run in ``thread_local``
             error mode.
-        copy_scene: ``scene`` copies each new scene snapshot into a static
-            scene of this agent's (the async tracker), so its graphs keep
+        copy_scene: ``scene`` copies each new scene snapshot, and each leaf
+            written in place since, into a static scene of this agent's
+            (the async tracker, the render programs), so its graphs keep
             their buffers across publishes.
         graph_factory: makes the graph objects (``torch.cuda.CUDAGraph``;
             a stub in the CPU tests of the launch accounting).
@@ -246,8 +261,9 @@ class StepGraphs:
         self.buffers: Dict[Hashable, torch.Tensor] = {}
         self.adam_states: Dict[Hashable, AdamState] = {}
         self.captures = self.replays = self.eager_iters = 0
+        self.scene_copies = 0  # calls of ``scene`` that copied a leaf in
         self._scene = None
-        self._scene_src = None
+        self._sources: List[tuple] = []  # (weakref to the source leaf, its _version) per static leaf
 
     @property
     def capture_error_mode(self) -> str:
@@ -295,7 +311,7 @@ class StepGraphs:
         """Drop every program and the static scene: the caller rebound the
         buffers they read."""
         self.programs.clear()
-        self._scene = self._scene_src = None
+        self._scene, self._sources = None, []
 
     def static(self, name: Hashable, value: torch.Tensor, requires_grad: bool = False) -> torch.Tensor:
         """The static buffer ``name`` (allocated at ``value``'s shape and
@@ -322,24 +338,131 @@ class StepGraphs:
         return state
 
     def scene(self, params: Any) -> Any:
-        """The scene a tracking step reads: ``params``' leaves detached (the
-        live buffers), or with ``copy_scene`` on the card this agent's static
-        scene with ``params`` copied in when it is another snapshot than the
-        last one copied."""
-        detached = tree_map(lambda t: t.detach(), params)
+        """The scene a step reads: ``params``' leaves detached (the live
+        buffers), or with ``copy_scene`` on the card this agent's static
+        scene (made at ``params``' shapes, again if they change) with every
+        leaf copied in whose source tensor or ``_version`` moved since the
+        last copy: another snapshot, or a leaf written in place."""
         if not (self.copy_scene and self.graphed):
-            return detached
-        if self._scene_src is not params:
-            with torch.no_grad():
-                shapes = [t.shape for t in tree_leaves(detached)]
-                if self._scene is None or [t.shape for t in tree_leaves(self._scene)] != shapes:
-                    self._scene = tree_map(lambda t: t.clone(), detached)
-                else:
-                    for a, b in zip(tree_leaves(self._scene), tree_leaves(detached)):
-                        a.copy_(b)
-            self._scene_src = params
+            return tree_map(lambda t: t.detach(), params)
+        src = tree_leaves(params)
+        with torch.no_grad():
+            if self._scene is None or [t.shape for t in tree_leaves(self._scene)] != [t.shape for t in src]:
+                self._scene = tree_map(lambda t: t.detach().clone(), params)
+                self._sources = [(weakref.ref(t), t._version) for t in src]
+                self.scene_copies += 1
+                return self._scene
+            moved = False
+            for i, (dst, t) in enumerate(zip(tree_leaves(self._scene), src)):
+                ref, version = self._sources[i]
+                if ref() is not t or version != t._version:
+                    dst.copy_(t.detach())
+                    self._sources[i] = (weakref.ref(t), t._version)
+                    moved = True
+            self.scene_copies += moved
         return self._scene
 
     def stats(self) -> Dict[str, Any]:
         return {"mode": self.mode, "programs": len(self.programs), "captures": self.captures,
                 "replays": self.replays, "eager_iters": self.eager_iters}
+
+
+class ForwardGraphs:
+    """The no-gradient programs of the renders and the point queries
+    (``render/renderer.py``, ``models/decoders.py:query_points``): the
+    port's counterpart of the JAX package's ``jax.jit`` of ``render_rays``
+    per (stage, no_gt_depth) and of ``eval_points_chunk`` (its
+    render/renderer.py:225 and models/decoders.py:402), whose callers pad
+    the last chunk to the static size so that one executable serves every
+    chunk.
+
+    ``mode`` as ``StepGraphs``' (``resolve_step_mode`` with no group):
+    ``graph`` by default on a CUDA device, ``eager`` on request and on the
+    CPU; ``graph`` on the CPU raises; a failed capture raises. A program
+    is one ``StepGraph`` (warmed up, captured once, replayed) that reads
+    static inputs the caller fills by device copies and writes static
+    outputs; a replay makes no host synchronization and no copy from the
+    host. Programs are keyed by their kind, stage, options and chunk size
+    and by the data pointers of every tensor they read.
+
+    Three hazards, and the design's answer to each:
+
+    1. K2's weight image inside a capture: ``TC_CACHE`` builds a new image
+       whenever a decoder's leaves change, and no capture may build one.
+       Each program holds static images of its own, refreshed outside any
+       capture before it runs (``ops/cuda/decoder_kernel.py:StaticImages``).
+       K2's launches in a replay count as their capture's (``StepGraph``).
+    2. Scene buffers that move. The strict mapper's leaves stay at fixed
+       addresses, but the async modes publish a fresh clone of every leaf
+       to the tracker, and its Visualizer renders that snapshot: programs
+       keyed on those pointers would be captured anew on every publish. So
+       the programs read a static scene, one per thread; ``scene`` copies
+       into it every leaf whose source tensor or ``_version`` moved since
+       the last copy (a publish, a mapping step, a checkpoint load). The
+       TSDF prior is not copied: its tensors stay put for a run, and the
+       programs are keyed on them. Captures per run: programs per thread
+       (renders per stage and chunk size, point queries per stage) x
+       threads, whatever the number of publishes.
+    3. Two threads, one Renderer. ``SLAMSystem`` gives one Renderer to
+       both Visualizers, and under loose / free the mapper's worker thread
+       and the main thread render at once, each on its own stream. Each
+       thread has its own ``StepGraphs``: its pool, side stream, programs
+       and static scene; no two threads share a pool or replay one graph.
+       With ``concurrent`` (another thread may launch work during a
+       capture) captures run in ``thread_local`` error mode.
+
+    ``graph_factory``: as ``StepGraphs``'.
+    """
+
+    def __init__(self, mode: Optional[str], device, concurrent: bool = False,
+                 graph_factory: Optional[Callable[[], Any]] = None):
+        self.device = torch.device(device)
+        self.mode = resolve_step_mode(mode, self.device) if graph_factory is None else mode
+        self.graphed = self.mode == "graph"
+        self.concurrent = concurrent
+        self.graph_factory = graph_factory
+        self._local = threading.local()
+        self._threads: List[StepGraphs] = []
+        self._lock = threading.Lock()
+
+    def thread(self) -> StepGraphs:
+        """The calling thread's programs, made on its first call."""
+        graphs = getattr(self._local, "graphs", None)
+        if graphs is None:
+            graphs = self._local.graphs = StepGraphs(self.mode, self.device, concurrent=self.concurrent,
+                                                     copy_scene=True, graph_factory=self.graph_factory)
+            with self._lock:
+                self._threads.append(graphs)
+        return graphs
+
+    def scene(self, params: Any) -> Any:
+        """This thread's static scene with ``params`` copied in where it
+        moved (hazard 2; ``StepGraphs.scene``)."""
+        return self.thread().scene(params)
+
+    def program(self, key: Hashable, make: Callable[[StepGraphs], Any]) -> Any:
+        """This thread's cached program of ``key``, or ``make(graphs)``'s."""
+        graphs = self.thread()
+        return graphs.program(key, lambda: make(graphs))
+
+    def stats(self) -> Dict[str, Any]:
+        """Programs, captures, replays and eager iterations summed over the
+        threads, the threads, the scene copies, and the device bytes the
+        threads' graph pools hold (GiB)."""
+        with self._lock:
+            threads = list(self._threads)
+        out = {"mode": self.mode, "threads": len(threads)}
+        for k in ("programs", "captures", "replays", "eager_iters"):
+            out[k] = sum(g.stats()[k] for g in threads)
+        out["scene_copies"] = sum(g.scene_copies for g in threads)
+        out["pool_gib"] = sum(pool_bytes(g.pool) for g in threads) / 2**30
+        return out
+
+
+def pad_rows(x: torch.Tensor, rows: int, value: float) -> torch.Tensor:
+    """``x`` with rows of ``value`` appended up to ``rows``: a chunk padded
+    to a program's static size."""
+    if x.shape[0] == rows:
+        return x
+    pad = torch.full((rows - x.shape[0],) + tuple(x.shape[1:]), value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])

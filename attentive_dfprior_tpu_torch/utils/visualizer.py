@@ -3,7 +3,9 @@
 The port of the JAX package's ``utils/visualizer.py`` (ref:
 src/utils/Visualizer.py:8-123). When its ``(idx, it)`` gate fires it renders
 the full frame at the given pose (``Renderer.render_img``; on the card the
-decoder MLPs run through K2) and writes one PNG of six panels,
+decoder MLPs run through K2, and each chunk replays a captured program
+unless the run is eager, the Renderer's ``graphs``) and writes one PNG of
+six panels,
 
     input depth      generated depth      depth residual
     input RGB        generated RGB        RGB residual

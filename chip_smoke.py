@@ -35,12 +35,20 @@ Phases (each failure exits non-zero):
      eagerly and as a graph replay beside zeros + ``index_add_`` and its
      device kernels a call are counted by the profiler (at most 5); K1's
      and K3's function as one ``F.conv_transpose3d`` (the library column,
-     ``tools/profile_scatter.py``), timed and held to K1;
+     ``tools/profile_scatter.py``), timed and held to K1; K5, TSDF
+     integration, ``torch.equal`` to its plain version in tsdf, weight and
+     colour at an odd volume (25x17x13) with edge-case frames (zero depth,
+     voxels behind the camera and on its plane, projections on pixel
+     half-boundaries, obs_weight 0.5, frames in sequence), at room0's 196 M
+     voxels with a 680x1200 frame and at ScanNet's 345 M with a 480x640
+     frame, where it is timed beside its plain version and its bound, and
+     its allocation is measured (none by the kernel; the frame's inputs
+     through ``TSDFVolume.integrate``);
   3. the room0-shape SLAM cycle (``tools/bench.py``'s replica workload,
      from its builder) under the ``halo`` grid gradient (K1) and the
      ``pallas`` one (K3), each with its iterations replayed as CUDA graphs
      and run eagerly (``utils/step_graph.py``), the four timed in turns,
-     four reps each: one mapped frame of 25/12/23 stage iterations x 1000
+     two reps each: one mapped frame of 25/12/23 stage iterations x 1000
      rays x 48 samples over a window of 5 random 680x1200 frames, a random
      4/256 m prior of ~196 M voxels, then 5 tracked frames of 10
      iterations x 200 rays; fails unless a replay counts the launches the
@@ -55,21 +63,32 @@ Phases (each failure exits non-zero):
      final meshes): losses, loop-closure records, aligned and unaligned
      ATE, seconds by part, panels per directory against the count the
      gates give; then ``--resume --end_idx 18``, which must start at frame
-     16 and write checkpoint 00017;
+     16 and write checkpoint 00017; K5's launches equal the frames the two
+     runs' priors fused, and the prior fused again through K5 and through
+     its plain version on the card is ``torch.equal`` (and to the run's);
+     the render programs' captures, replays and pool bytes per run;
   5. ``Renderer.render_img`` of the last mapped frame from the mapped scene
      (K2 on the path), then once more with the plain MLP: depth L1 against
-     the sensor depth for both, and the gap between the two renders; (b)
-     the same two renders with ``rendering.N_importance=16`` (the
-     resampled second pass through the same decoder path), same gate;
+     the sensor depth for both, and the gap between the two renders; the
+     graphed render (each chunk a replay, K2 inside) ``torch.equal`` to the
+     eager render with the same padding, before and after 10 mapping
+     iterations that write the decoders, the gap to the unpadded eager
+     render printed, seconds per render graphed and eager in turns (both
+     profiled at the very end of the run: busy share, kernels a chunk); (b)
+     the same with ``rendering.N_importance=16`` (the resampled second
+     pass through the same decoder path), same gates, and with
+     ``perturb=1.0`` the graphed render ``torch.equal`` to the eager one;
   6. determinism: frame 0's map of room_tracking.yaml (its three stages at
-     500 of the config's 1000 iterations, the prior fused from every 10th
+     250 of the config's 1000 iterations, the prior fused from every 10th
      frame)
      twice graphed and twice eager from one scene and generator state, with
      PyTorch's default kernels: fails unless each pair's per-iteration
      losses and final scene leaves are ``torch.equal``; graphed against
      eager printed;
   7. the Mesher: ``SLAMSystem.get_mesh`` on phase 4's map (K2 on the path),
-     then once more with the plain MLP: field-query and host seconds, and
+     graphed and eager with the same padding (equal occupancies over the
+     whole lattice and equal meshes, or the phase fails), then with the
+     plain MLP: field-query and host seconds, and
      accuracy / completion / ratio against the synthetic GT mesh culled to
      frames 0-15 (printed, no gate; ``tools/eval_synthetic_demo.py``'s
      scorer, as are phases 9 and 12's);
@@ -95,7 +114,9 @@ Phases (each failure exits non-zero):
      seconds, ``run()`` seconds without loop closure and the median interval
      between tracked frames beside phase 4's strict run; gates as phase 4's (the
      unaligned ATE, a ``loop_relax`` and a ``loop_final_refine``, the
-     panels) plus every frame strict maps mapped and K1 and K2 launched;
+     panels) plus every frame strict maps mapped, K1 and K2 launched, K5
+     once per frame fused, and at most 3 render and field-query captures a
+     thread whatever the publishes;
  11. (only on request) the whole room_tracking.yaml under ``loose``, as
      phase 9 runs it: aligned ATE and seconds by part (printed, no gate);
  12. configs/Replica/room0.yaml through the file-backed entry point at its
@@ -106,7 +127,8 @@ Phases (each failure exits non-zero):
      ``results/depth*.png`` uint16 depth x 6553.5, ``traj.txt`` OpenCV
      c2w), read back through ``Replica`` (depth and poses exact, colour mean
      abs error at most 2/255); the TSDF builder's CLI with
-     ``--input_folder`` (room0's prior, voxel 4/256 m, every frame); then
+     ``--input_folder`` (room0's prior, voxel 4/256 m, every frame; K5 once
+     per frame; its peak device memory beside PR 13's eager fusion); then
      ``attentive_dfprior_tpu_torch.run`` with ``--input_folder``, panels
      every 5th frame, the first map cut to 250 of its 1500 iterations:
      tracks 1-5, maps 0 and 5. Fails on a
@@ -127,7 +149,8 @@ Phases (each failure exits non-zero):
      poses against the GT surface those poses see (recall at least 0.95,
      completion at most 1 cm; accuracy, precision and F-score printed, as
      the JAX package's face rule keeps faces at the frusta's sides, ROADMAP
-     F10), and phase 12's mesh re-fused and scored (printed); (d)
+     F10), and phase 12's mesh re-fused and scored (printed), K5 once per
+     frame fused; (d)
      ``tools/convert_reference_ckpt.py`` on a reference-layout ``.tar`` of
      phase 12's scene, loaded back through ``load_checkpoint`` leaf for leaf;
  14. (only on request) ``tools/pretrain_decoders.py`` whole (6000 steps),
@@ -169,17 +192,18 @@ Phases (each failure exits non-zero):
      (the ScanNet shape: 5000 rays x 60 mapping iterations over a window
      of 10 random 480x640 frames, 5 x 50 x 1000 tracking rays, a random
      345 M-voxel prior; phase 3 runs the replica workload), graphed and
-     eager in turns at 4 reps: its JSON line; fails on a non-finite loss,
+     eager in turns at 2 reps: its JSON line; fails on a non-finite loss,
      without K1, without peak memory, or without the graphed headline and
-     the eager record; both modes' cycles profiled at the end of the run;
+     the eager record; both modes' cycles profiled at the end of the run
+     (busy share of 17(a)'s median cycle);
      (b) ``tools/profile_mapping.py``, every row, ``full_iter_color``
-     graphed and eager in turns, 4 reps: fails on a non-finite row, unless
+     graphed and eager in turns, 2 reps: fails on a non-finite row, unless
      K1 runs in the ``halo`` rows alone and K3 in the ``pallas`` rows
      alone, or if the graphed iteration counts other launches; then the
      two ``cell_scatter_*`` rows (the atomic ``index_add_`` and the ordered
      sum) again at the ScanNet shape's 5000 rays; (c)
      ``tools/bench_scaling.py --devices 1 --pixels 1000,5000 --step-modes
-     graph,eager --reps 4`` (a child, a world of one on NCCL; the modes
+     graph,eager --reps 2`` (a child, a world of one on NCCL; the modes
      timed in turns) and its comm model's prediction for 2, 4 and 8 H100s
      from the graphed step; fails on a non-finite loss, without K1, or when
      the headline did not run graphed;
@@ -217,7 +241,7 @@ otherwise; phase 16(b)'s split agents, each alone in its group, run
 graphed, and the phase fails otherwise.
 
 Every path (each timed variant of phase 3, phases 4, 5, 5(b), 6, 7, 8, 9,
-10, 11, 12, 13(b), 14, 17(a), 17(b) and 18, phase 20, each of phase 10(a)'s three runs,
+10, 11, 12, 13(b), 13(c), 14, 17(a), 17(b) and 18, phase 20, each of phase 10(a)'s three runs,
 each of phase 19's two and phase 21's three, and each of phase 15(b)'s
 four processes, phase 16's and phase 17(c)'s, counted in its child process)
 runs with the launch
@@ -278,9 +302,11 @@ ASYNC_DP_SET = ASYNC_EQUAL_SET + ["parallel.enable=True"]  # phase 16(a): phase 
 # phase 16(b) against phase 4's strict run: the JAX split test's 20 cm (tests/test_sharding.py:306)
 SPLIT_TRAJ_GATE_M = 0.20
 # phase 17(a): the ScanNet shape (phase 3 times the replica workload on the same builder)
-BENCH_WORKLOAD, BENCH_REPS = "scannet", 4  # graphed and eager in turns
+# graphed and eager in turns; the default run's depth cuts (this, ROOM0_TURNS, PROFILE_REPS, PRETRAIN_TIMED_REPS,
+# SCALING_REPS and DET_SET, from 4 reps and 500 iterations) keep it well inside 1200 s on a slow host
+BENCH_WORKLOAD, BENCH_REPS = "scannet", 2
 PROFILE_ITERS = 5  # phase 17(b): iterations a timing (10 in the tool's default; cut for time)
-PROFILE_REPS = 4  # phase 17(b): timings a row, the graphed and eager iterations in turns
+PROFILE_REPS = 2  # phase 17(b): timings a row, the graphed and eager iterations in turns
 SCANNET_RAYS = 5000  # phase 17(b): the ScanNet shape's rays a mapping iteration, for the cell_scatter rows
 # phase 17(b): the rows whose grid gradient runs K1 (K3: the scatter_bwd_pallas_* rows)
 PROFILE_HALO_ROWS = ("full_iter_color", "full_iter_color_eager", "fwd_bwd_color", "scatter_bwd_grid_low", "scatter_bwd_grid_high",
@@ -295,12 +321,23 @@ GRAPH_CHILD_TAG = "GRAPH_EQUAL "  # the prefix of phase 19's result line in the 
 # phase 21 runs phase 19's frame 0 map (GRAPH_EQUAL_SET) and GRAPH_EQUAL_TRACK, as dp on a world of one on NCCL
 DP_GRAPH_TAG = "DP_GRAPH "  # the prefix of phase 21's result line in the child's output
 PRETRAIN_EQUAL_STEPS = 20  # phase 13(b): the pretrain graphed against eager, torch.equal
-PRETRAIN_TIMED_REPS = 4  # phase 13(b): PRETRAIN_STEPS steps a rep, graphed and eager in turns
-SCALING_REPS = 4  # phase 17(c): timed stages a mode, graphed and eager in turns
+PRETRAIN_TIMED_REPS = 2  # phase 13(b): PRETRAIN_STEPS steps a rep, graphed and eager in turns
+SCALING_REPS = 2  # phase 17(c): timed stages a mode, graphed and eager in turns
 # phases 6 and 20: frame 0's map, twice in each step mode; the prior fused from every 10th frame, the map cut
-# from 1000 iterations to 500 to keep the default run near 1000 s (at 1000: 110.6 s for the four runs)
-DET_SET = ["tsdf.space=10", "mapping.iters_first=500"]
+# from 1000 iterations to 250 for time (at 1000: 110.6 s for the four runs; atomic sums parted at iteration 13)
+DET_SET = ["tsdf.space=10", "mapping.iters_first=250"]
+ROOM0_TURNS = 1  # phase 3: each variant, then back, this many times: 2 timed reps a variant
 K4_TIMED = "room0 colour stage, 8C"  # phase 2: K4's case in the kernels line (K1's shape and width)
+PR13_VIS_S = {"strict": 4.586, "loose": 5.294}  # phases 4 and 10(b)'s vis seconds with eager renders (PR 13 call C)
+PR13_BUILDER_PEAK_GIB = 23.77  # phase 12's builder with the eager fusion (PR 13 call C)
+
+
+def check_fusion_launches(paths, name: str, frames: int) -> None:
+    """Fail unless the path launched K5 once per frame it fused."""
+    got = paths[name]["tsdf_integrate"]
+    print(f"{name}: K5 (TSDF integration) launched {got} times for {frames} frames fused")
+    if got != frames:
+        fail(f"{name}: K5 launched {got} times for {frames} frames fused")
 
 
 def fail(msg: str) -> None:
@@ -601,6 +638,171 @@ def phase_kernels(torch, dev):
             k4[label] = m
         print(line, flush=True)
     rec["K4"] = k4
+
+    # ---- K5, TSDF integration: bit-identical to its plain version ----
+    rec["K5"] = kernel_k5(torch, dev)
+    return rec
+
+
+def k5_frame(rng, cam, c2w, depth_range=(0.5, 4.0), zero_rows: int = 0, obs_weight: float = 1.0):
+    """One frame for K5's checks: (depth (H, W), colour (H, W, 3) in [0, 255],
+    intrinsics (3, 3), w2c (4, 4), obs_weight), numpy float32, depth uniform
+    in ``depth_range`` m with its first ``zero_rows`` rows 0, colour values
+    up to 255 so that the clamp is reached."""
+    H, W = cam["H"], cam["W"]
+    depth = rng.uniform(*depth_range, (H, W)).astype(np.float32)
+    depth[:zero_rows] = 0.0
+    color = np.minimum(rng.uniform(0.0, 300.0, (H, W, 3)), 255.0).astype(np.float32)
+    intr = np.array([[cam["fx"], 0.0, cam["cx"]], [0.0, cam["fy"], cam["cy"]], [0.0, 0.0, 1.0]], np.float32)
+    w2c = np.linalg.inv(np.asarray(c2w, np.float64)).astype(np.float32)
+    return depth, color, intr, w2c, obs_weight
+
+
+def kernel_k5(torch, dev):
+    """K5 (TSDF integration) bit for bit against its plain version on the
+    card, at an odd volume with edge-case frames and at room0's and
+    ScanNet's volumes; timed, bounded and its allocation measured at the
+    two large ones."""
+    from attentive_dfprior_tpu_torch.ops.cuda import tsdf_kernel as K5
+    from attentive_dfprior_tpu_torch.tools import bench
+    from attentive_dfprior_tpu_torch.tsdf.fusion import TSDFVolume
+
+    rec = {"max_abs_err": 0.0}
+
+    def fresh(dims):
+        X, Y, Z = dims
+        return [torch.full((X, Y, Z), -1.0, device=dev), torch.zeros((X, Y, Z), device=dev),
+                torch.zeros((X, Y, Z, 3), device=dev)]
+
+    def on_card(frame, origin):
+        depth, color, intr, w2c, ow = frame
+        return [torch.as_tensor(a, device=dev) for a in (depth, color, intr, w2c, origin)], ow
+
+    def case(label, dims, origin, voxel, frames):
+        """Both versions from one fresh volume through ``frames``; fails
+        unless tsdf, weight and colour are torch.equal. Returns the K5
+        volume and the voxels the first frame updated."""
+        a, b = fresh(dims), fresh(dims)
+        origin = np.asarray(origin, np.float32)
+        updated = None
+        for frame in frames:
+            t, ow = on_card(frame, origin)
+            K5.integrate(*a, *t, voxel, 5.0 * voxel, ow)
+            K5.integrate_frame_plain(*b, *t, voxel, 5.0 * voxel, ow)
+            if updated is None:
+                torch.cuda.synchronize()
+                updated = int((a[1] > 0).sum())
+        torch.cuda.synchronize()
+        bad = []
+        for name, x, y in zip(("tsdf", "weight", "color"), a, b):
+            err = float((x - y).abs().max())
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if not torch.equal(x, y):
+                diff = (x != y).reshape(-1)
+                where = diff.nonzero()[:3].reshape(-1).tolist()
+                bad.append(f"{name}: {int(diff.sum())} of {diff.numel()} differ (max abs {err:.3e}; first at flat "
+                           f"{where}: K5 {x.reshape(-1)[where].tolist()} plain {y.reshape(-1)[where].tolist()})")
+        nvox = int(np.prod(dims))
+        print(f"K5 {label}: volume {tuple(dims)} = {nvox / 1e6:.2f} M voxels of {voxel} m, {len(frames)} frame(s) "
+              f"of {frames[0][0].shape[0]}x{frames[0][0].shape[1]}, obs_weight {[f[4] for f in frames]}: first frame "
+              f"updated {updated} voxels; tsdf, weight and colour torch.equal {not bad}", flush=True)
+        if bad:
+            fail(f"K5 differs from its plain version at {label}: " + "; ".join(bad))
+        del b
+        return a, updated
+
+    # odd: 25 x 17 x 13 (no multiple of the 128-thread block), voxel 1/8 m and
+    # the camera at the origin looking along +z, so voxels lie behind the
+    # camera, on its plane (z = 0) and project onto pixel half-boundaries
+    # (u = 4 x / z + 3.5 with x, z multiples of 1/8); two rows of zero depth,
+    # an all-zero frame, obs_weight 0.5, three frames in sequence
+    rng = np.random.default_rng(5)
+    cam = dict(H=8, W=8, fx=4.0, fy=4.0, cx=3.5, cy=3.5)
+    eye = np.eye(4)
+    moved = np.eye(4)
+    moved[:3, 3] = [0.25, -0.125, -0.5]
+    odd = (25, 17, 13)
+    origin = (-1.5, -1.0, -0.75)
+    frames = [k5_frame(rng, cam, eye, (0.1, 2.0), zero_rows=2), k5_frame(rng, cam, moved, (0.1, 2.0), obs_weight=0.5),
+              k5_frame(rng, cam, eye, (0.0, 0.0))]
+    case("odd volume, edge-case frames, 3 in sequence", odd, origin, 0.125, frames)
+    x = origin[0] + np.arange(odd[0]) * 0.125
+    z = origin[2] + np.arange(odd[2]) * 0.125
+    u = 4.0 * x[:, None] / z[None, z > 0] + 3.5
+    print(f"K5 odd volume: {int((u - np.floor(u) == 0.5).sum())} (x, z) voxel columns in front of the camera "
+          f"project onto a pixel half-boundary in u, {int((z == 0).sum())} z-plane(s) lie on the camera plane",
+          flush=True)
+    case("odd volume, obs_weight 0.5, two frames", odd, (-1.4, -0.9, 0.1), 0.1,
+         [k5_frame(rng, cam, eye, obs_weight=0.5), k5_frame(rng, cam, moved, obs_weight=0.5)])
+
+    # the main path's volumes: room0 (phase 12) with a 680x1200 frame, and
+    # ScanNet's 345.0 M voxels with a 480x640 frame (the bench's shape),
+    # each camera at (2, 1, 0) looking along +z
+    for name in ("replica", "scannet"):
+        w = bench.WORKLOADS[name]
+        bnds = np.asarray(w["bound"], np.float64)
+        dims = bench.prior_dims(bnds)
+        c2w = np.eye(4)
+        c2w[:3, 3] = [2.0, 1.0, 0.0]
+        frame = k5_frame(np.random.default_rng(6), w["cam"], c2w)
+        label = "room0" if name == "replica" else "scannet"
+        a, updated = case(f"{label} volume, one frame", dims, bnds[:, 0], bench.VOXEL, [frame])
+        t, ow = on_card(frame, bnds[:, 0].astype(np.float32))
+        args = (*t, bench.VOXEL, 5.0 * bench.VOXEL, ow)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        K5.integrate(*a, *args)
+        torch.cuda.synchronize()
+        kernel_alloc = torch.cuda.max_memory_allocated(dev) - base
+        ms = time_ms(torch, lambda: K5.integrate(*a, *args))
+        plain_ms = time_ms(torch, lambda: K5.integrate_frame_plain(*a, *args), reps=5, inner=2, warmup=1)
+        # the bound: every voxel projected (32 fp32 operations in front of the
+        # camera: 6 to world, 18 to camera, 8 to the pixel; 12 behind it), 22
+        # more and 20 B read + 20 B written per voxel the frame updates, the
+        # frame read once
+        X, Y, Z = dims
+        wc = t[3]
+        ix = [torch.arange(n, device=dev, dtype=torch.float32) * bench.VOXEL + float(o)
+              for n, o in zip(dims, bnds[:, 0].astype(np.float32))]
+        cz = (wc[2, 0] * ix[0].view(X, 1, 1) + wc[2, 1] * ix[1].view(1, Y, 1)) + wc[2, 2] * ix[2].view(1, 1, Z)
+        front = int(((cz + wc[2, 3]) > 0).sum())
+        del cz
+        nvox = X * Y * Z
+        ops = 32 * front + 12 * (nvox - front) + 22 * updated
+        nbytes = 40 * updated + sum(x.numel() * 4 for x in t)
+        ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        del a
+        torch.cuda.empty_cache()
+        # through the builder's entry (TSDFVolume.integrate, frame from host
+        # numpy): the peak above the volume, which must stay within the
+        # frame's inputs plus 64 MiB
+        vol = TSDFVolume(bnds, bench.VOXEL, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        depth, color, intr, _, _ = frame
+        vol.integrate(color, depth, intr, c2w)
+        torch.cuda.synchronize()
+        entry_alloc = torch.cuda.max_memory_allocated(dev) - base
+        frame_bytes = depth.nbytes + color.nbytes + intr.nbytes + 16 * 4 + 3 * 4
+        del vol
+        torch.cuda.empty_cache()
+        print(f"K5 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4f} "
+              f"ms by {'operations' if ops_ms >= bytes_ms else 'bytes'} (operations {ops / 1e9:.2f} G: {ops_ms:.4f} "
+              f"ms at 67 TFLOP/s, {front} of {nvox} voxels in front of the camera; bytes {nbytes / 1e6:.1f} MB: "
+              f"{bytes_ms:.4f} ms), {100 * bound_ms / ms:.1f} % of it; {updated} voxels updated "
+              f"({100 * updated / nvox:.2f} %); allocated by the kernel's call {kernel_alloc} B, by "
+              f"TSDFVolume.integrate {entry_alloc} B (the frame's inputs {frame_bytes} B); library: none, no single "
+              f"PyTorch call computes it", flush=True)
+        if kernel_alloc != 0:
+            fail(f"K5 allocated {kernel_alloc} B at {label} (expected none)")
+        if entry_alloc > frame_bytes + 64 * 2**20:
+            fail(f"TSDFVolume.integrate allocated {entry_alloc} B at {label}, above the frame's {frame_bytes} B "
+                 f"+ 64 MiB")
+        rec[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="operations" if ops_ms >= bytes_ms else "bytes", updated=updated, voxels=nvox,
+                          kernel_alloc=kernel_alloc, entry_alloc=entry_alloc)
     return rec
 
 
@@ -620,7 +822,7 @@ def phase_room0(torch, dev, kernels):
     and ``pallas`` (K3) grid gradients, each with its iterations replayed
     as CUDA graphs and run eagerly (``utils/step_graph.py``), each from its
     own copy of one initial scene and its own copy of one pixel-draw
-    stream, timed in turns, four reps each. Returns ({label: result},
+    stream, timed in turns, 2 x ROOM0_TURNS reps each. Returns ({label: result},
     {label: cycle}); each result's ``launches`` are the kernels' launches
     over its timed cycles (a replay counts its capture's). The profiles
     (``profile_cycles``) run last in the script: the profiler slows what
@@ -649,9 +851,9 @@ def phase_room0(torch, dev, kernels):
     splits = {v: [] for v in labels}
     launches = {v: {k.name: 0 for k in kernels} for v in labels}
     peak = {v: 0.0 for v in labels}
-    # in turns (each variant, then back, twice): every variant meets the
-    # same host drift; every count is read over its own cycle
-    for label in (labels + labels[::-1]) * 2:
+    # in turns (each variant, then back): every variant meets the same host
+    # drift; every count is read over its own cycle
+    for label in (labels + labels[::-1]) * ROOM0_TURNS:
         for k in kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -747,12 +949,36 @@ def profile_cycle(torch, cycle, cycle_s: float, label: str, iters: int) -> None:
         print(f"  {ns / 1e6:9.3f} ms  {n:6d} x  {name[:90]}")
 
 
-def profile_bench_cycles(torch, dev) -> None:
+def profile_renders(torch, slam, times) -> None:
+    """Phase 5's render of the last mapped frame profiled at the end of the
+    run, graphed and eager (``profile_cycle``): the device's busy share of
+    phase 5's median seconds and the kernels that take the most device time,
+    per chunk of ``ray_batch_size`` rays."""
+    from attentive_dfprior_tpu_torch.render.renderer import Renderer
+    from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs
+
+    last = ENTRY_END - 1
+    _, _, depth, _ = slam.dataset[last]
+    eager = Renderer(slam.rcfg, slam.scene_cfg.bound, slam.tsdf_bnds, slam.cam, slam.device,
+                     graphs=ForwardGraphs("eager", slam.device))
+    chunks = -(-slam.cam.H * slam.cam.W // slam.renderer.ray_batch_size)
+    for mode, renderer in (("graph", slam.renderer), ("eager", eager)):
+        def render():
+            renderer.render_img(slam.params, slam.estimate_c2w_list[last], slam.tsdf_volume, gt_depth=depth)
+            torch.cuda.synchronize()
+
+        render()
+        profile_cycle(torch, render, times[f"{mode}_s"], f"render 240x320 {mode}, per chunk", chunks)
+
+
+def profile_bench_cycles(torch, dev, cycle_s) -> None:
     """Phase 17(a)'s workload (BENCH_WORKLOAD) profiled at the end of the
     run, as phase 3's cycles are: for each step mode a fresh scene and
-    cycle (``tools/bench.py``'s builder), one warm-up cycle, one timed
-    cycle, then one profiled (``profile_cycle``): the busy share and the
-    host's launches per iteration beside 17(a)'s times."""
+    cycle (``tools/bench.py``'s builder), graphed after one warm-up cycle
+    (the capture), eager at once (17(a) loaded its kernels in this
+    process), then one profiled (``profile_cycle``): the busy share of
+    17(a)'s median cycle seconds ``cycle_s`` (by mode) and the host's
+    launches per iteration."""
     from attentive_dfprior_tpu_torch.tools import bench
 
     spec = bench.WORKLOADS[BENCH_WORKLOAD]
@@ -760,10 +986,9 @@ def profile_bench_cycles(torch, dev) -> None:
     wl = bench.build_workload(BENCH_WORKLOAD, dev)
     for mode in ("graph", "eager"):
         _, cycle = bench.make_cycle(wl, "halo", step_mode=mode)
-        cycle()
-        t0 = time.perf_counter()
-        cycle()
-        profile_cycle(torch, cycle, time.perf_counter() - t0, f"{BENCH_WORKLOAD} {mode}", iters)
+        if mode == "graph":
+            cycle()
+        profile_cycle(torch, cycle, cycle_s[mode], f"{BENCH_WORKLOAD} {mode}", iters)
 
 
 def expected_panels(cfg, start: int, n: int, n_img: int):
@@ -828,7 +1053,8 @@ def report_run(slam, out_dir, wall: float, label: str, records):
     from attentive_dfprior_tpu_torch.utils.step_graph import graph_pool_bytes
 
     print(f"{label}: {slam.step_mode} steps; mapper {json.dumps(slam.mapper.graphs.stats())}, tracker "
-          f"{json.dumps(slam.tracker.graphs.stats())}; graph pools held in the process {graph_pool_bytes() / 2**30:.3f} GiB")
+          f"{json.dumps(slam.tracker.graphs.stats())}; render and field-query programs "
+          f"{json.dumps(slam.forward_graphs.stats())}; graph pools held in the process {graph_pool_bytes() / 2**30:.3f} GiB")
     print(f"{label}: {wall:.1f} s for {n} frames; aligned ATE RMSE {ate['absolute_translational_error.rmse_cm']:.3f} "
           f"cm over {ate['compared_pose_pairs']} poses ({os.path.basename(ckpt)}); unaligned ATE RMSE "
           f"{100 * float(np.sqrt(np.mean(err ** 2))):.3f} cm")
@@ -862,6 +1088,8 @@ def phase_entry(torch, dev):
         elif r["event"] == "map":
             print(f"entry map frame {r['idx']}: losses {json.dumps(r['losses'])}")
     _, _, err = report_run(slam, out_dir, wall, "entry point", records)
+    print(f"entry point: vis {slam.timings['vis']:.3f} s with the renders graphed (PR 13, eager renders: "
+          f"{PR13_VIS_S['strict']} s)")
     print("entry point: unaligned translation error per frame (cm): " + " ".join(f"{100 * e:.2f}" for e in err))
     if float(np.sqrt(np.mean(err**2))) > 0.10:
         fail("entry point: unaligned ATE above 10 cm")
@@ -882,12 +1110,47 @@ def phase_entry(torch, dev):
     ckpt = os.path.join(out_dir, "ckpts", f"{ENTRY_END + 1:05d}.npz")
     print(f"resume: {time.perf_counter() - t0:.1f} s; tracked frames {tracked}; "
           f"{os.path.basename(ckpt)} written {os.path.exists(ckpt)}; "
-          f"records {json.dumps([r for r in new if r['event'].startswith('loop_')])}")
+          f"records {json.dumps([r for r in new if r['event'].startswith('loop_')])}; render and field-query "
+          f"programs {json.dumps(resumed.forward_graphs.stats())}")
     if tracked != [ENTRY_END, ENTRY_END + 1] or not os.path.exists(ckpt) or resumed.last_idx != ENTRY_END + 1:
         fail(f"resume: expected frames {ENTRY_END}-{ENTRY_END + 1} and {os.path.basename(ckpt)}")
     return slam, {"wall_s": wall, "run_s": slam.profiler.seconds["run"], "loop_s": slam.timings["loop"],
                   "track_interval_median_s": track_interval_median(records),
                   "traj": slam.estimate_c2w_list[:ENTRY_END].copy()}
+
+
+def fused_frames(slam) -> int:
+    """Frames a ``SLAMSystem``'s on-the-fly prior fuses (``tsdf.space``)."""
+    return len(range(0, slam.n_img, int(slam.cfg.get("tsdf", {}).get("space", 10))))
+
+
+def phase_prior_equal(torch, dev, slam) -> None:
+    """Phase 4's on-the-fly prior fused again from the same frames, once
+    through K5 and once through its plain version on the card
+    (``tsdf_kernel.plain_on_cuda``, which no path enters): tsdf, weight and
+    colour ``torch.equal``, and K5's tsdf ``torch.equal`` to the prior the
+    run used."""
+    from attentive_dfprior_tpu_torch.ops.cuda import tsdf_kernel
+    from attentive_dfprior_tpu_torch.tsdf.builder import build_tsdf_volume
+
+    tcfg = slam.cfg.get("tsdf", {})
+    space, voxel = int(tcfg.get("space", 10)), float(tcfg.get("voxel_size", 4.0 / 256))
+    t0 = time.perf_counter()
+    _, _, k5 = build_tsdf_volume(slam.cfg, space=space, voxel_size=voxel, device=dev)
+    torch.cuda.synchronize()
+    k5_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tsdf_kernel.plain_on_cuda():
+        _, _, plain = build_tsdf_volume(slam.cfg, space=space, voxel_size=voxel, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    equal = {name: torch.equal(getattr(k5, name), getattr(plain, name)) for name in ("_tsdf", "_weight", "_color")}
+    used = torch.equal(k5.device_volume(), slam.tsdf_volume_track)
+    print(f"prior ({fused_frames(slam)} frames of {slam.cam.H}x{slam.cam.W} into {tuple(k5._tsdf.shape)} voxels of "
+          f"{voxel} m): K5 {k5_s:.2f} s, plain version on the card {plain_s:.2f} s (frames from the process's cache); "
+          f"torch.equal {json.dumps(equal)}; K5's tsdf torch.equal to the run's prior {used}")
+    if not (all(equal.values()) and used):
+        fail("prior: K5's fusion differs from the plain version's or from the run's prior")
 
 
 def late_map_grant() -> None:
@@ -1378,7 +1641,9 @@ def phase_entry_loose(torch, dev, strict):
     ``strict``: phase 4's {wall_s, run_s, loop_s, track_interval_median_s},
     or None. Phase 4 renders the dataset's frames first, so the two runs'
     set-ups differ, and the refines differ in depth: compare their
-    ``run()`` seconds without loop closure."""
+    ``run()`` seconds without loop closure. Fails if the render programs
+    captured more than a bound that publishes do not move. Returns the
+    frames its prior fused."""
     from attentive_dfprior_tpu_torch import run as run_mod
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_loose_")
@@ -1400,6 +1665,14 @@ def phase_entry_loose(torch, dev, strict):
         if r["event"] in ("map", "publish", "publish_skip"):
             print(f"loose {r['event']} frame {r['idx']}" + (f": losses {json.dumps(r['losses'])}" if r["event"] == "map" else ""))
     _, _, err = report_run(slam, out_dir, wall, "loose", records)
+    programs = slam.forward_graphs.stats()
+    bound = programs["threads"] * (1 + len(("high", "color")))  # a thread's render program and point queries
+    print(f"loose: vis {slam.timings['vis']:.3f} s with the renders graphed (PR 13, eager renders: "
+          f"{PR13_VIS_S['loose']} s); render programs captured {programs['captures']} for {len(pubs)} publishes "
+          f"(at most {bound}: {programs['threads']} threads x one render and two point-query programs)")
+    if programs["mode"] != "graph" or not 0 < programs["captures"] <= bound:
+        fail(f"loose: {programs['captures']} render and field-query captures in {programs['mode']} mode "
+             f"(expected 1 to {bound}, whatever the publishes)")
     reads = {}
     for r in records:
         if r["event"] == "track":
@@ -1424,43 +1697,84 @@ def phase_entry_loose(torch, dev, strict):
     if events.count("publish") + events.count("publish_skip") != len(mapped):
         fail("loose: a mapped frame was neither published nor skipped")
     check_panels(slam, 0, ENTRY_END, "loose")
+    return fused_frames(slam)
+
+
+def render_unpadded(torch, r, params, c2w, tsdf_volume, depth):
+    """``r.render_img`` with every chunk, the last one too, rendered as it
+    is: ``render_rays`` on at most ``ray_batch_size`` rays, unpadded."""
+    from attentive_dfprior_tpu_torch.ops.rays import get_rays_full_image
+    from attentive_dfprior_tpu_torch.render.renderer import render_rays
+
+    cam, bs = r.cam, r.ray_batch_size
+    ro, rd = get_rays_full_image(cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy,
+                                 torch.as_tensor(np.asarray(c2w, np.float32), device=r.device))
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    gd = torch.as_tensor(np.asarray(depth, np.float32), device=r.device).reshape(-1)
+    outs = []
+    with torch.no_grad():
+        for i in range(0, ro.shape[0], bs):
+            outs.append(render_rays(params, ro[i : i + bs].contiguous(), rd[i : i + bs].contiguous(), gd[i : i + bs],
+                                    tsdf_volume, r.tsdf_bnds, r.bound, "color", r.rcfg, fused=r.use_fused)[:3])
+    torch.cuda.synchronize()
+    d, v, c = (torch.cat(x) for x in zip(*outs))
+    return d.reshape(cam.H, cam.W), v.reshape(cam.H, cam.W), c.reshape(cam.H, cam.W, 3)
 
 
 def phase_render(torch, dev, slam, n_importance: int = 0):
-    """The last mapped frame rendered through K2, then once more with the
-    plain MLP on the same map and pose. The map moves between runs (ROADMAP F2), so the depth
-    L1 of one run says little about K2; the gap between the two renders is
-    K2's own. Fails if it shifts the mean depth by more than RENDER_GAP_M.
-    With ``n_importance`` (phase 5(b)) both renders resample each ray with
-    ``rendering.N_importance = n_importance`` points, both passes through the
-    same decoder path."""
+    """The last mapped frame rendered from phase 4's map. (a) Through K2,
+    then once more with the plain MLP on the same map and pose: the map
+    moves between runs (ROADMAP F2), so the depth L1 of one run says little
+    about K2; the gap between the two renders is K2's own. Fails if it
+    shifts the mean depth by more than RENDER_GAP_M. (b) The graphed render
+    (every chunk a replay of one program, K2 inside) against the eager
+    render with the same padding: ``torch.equal`` in depth, variance and
+    colour, then again after mapping iterations that wrote the decoders
+    (the programs' static weight images must follow); the gap to the
+    unpadded eager render printed; seconds per render, graphed and eager in
+    turns. With ``n_importance`` (phase 5(b)) every render resamples each
+    ray with ``rendering.N_importance = n_importance`` points, both passes
+    through the same decoder path, and once more with ``perturb = 1.0``:
+    graphed ``torch.equal`` to eager."""
     import dataclasses
 
     from attentive_dfprior_tpu_torch.render.renderer import Renderer
+    from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs
+    from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 
     last = ENTRY_END - 1
-    _, color, depth, _ = slam.dataset[last]
+    _, color, depth, gt_c2w = slam.dataset[last]
     gt_d = torch.as_tensor(depth, device=dev)
     valid = gt_d > 0
-    renderer = slam.renderer
-    label = "render"
+    rcfg, renderer, label = slam.rcfg, slam.renderer, "render"
     if n_importance:
         rcfg = dataclasses.replace(slam.rcfg, N_importance=n_importance)
-        renderer = Renderer(rcfg, slam.scene_cfg.bound, slam.tsdf_bnds, slam.cam, slam.device)
+        renderer = Renderer(rcfg, slam.scene_cfg.bound, slam.tsdf_bnds, slam.cam, slam.device,
+                            graphs=slam.forward_graphs)
         label = f"render N_importance={n_importance}"
+    eager = Renderer(rcfg, slam.scene_cfg.bound, slam.tsdf_bnds, slam.cam, slam.device,
+                     graphs=ForwardGraphs("eager", slam.device))
+    if not renderer.graphs.graphed:
+        fail(f"{label}: the system's renderer is not graphed ({renderer.graphs.mode})")
+    c2w = slam.estimate_c2w_list[last]
+
+    def render(r):
+        out = r.render_img(slam.params, c2w, slam.tsdf_volume, gt_depth=depth)
+        torch.cuda.synchronize()
+        return out
+
     runs = {}
     for fused in (True, False):
         renderer.use_fused = fused
         t0 = time.perf_counter()
-        d, _, c = renderer.render_img(slam.params, slam.estimate_c2w_list[last], slam.tsdf_volume, gt_depth=depth)
-        torch.cuda.synchronize()
+        d, _, c = render(renderer)
         dt = time.perf_counter() - t0
         if not (torch.isfinite(d).all() and torch.isfinite(c).all()):
             fail(f"{label} (fused={fused}): non-finite output")
         l1 = float((d - gt_d).abs()[valid].mean())
         cl1 = float((c - torch.as_tensor(color, device=dev)).abs().mean())
-        print(f"{label} frame {last} ({tuple(d.shape)}, {'K2' if fused else 'plain MLP'}): {dt:.3f} s, "
-              f"depth L1 {100 * l1:.3f} cm, color L1 {cl1:.4f}")
+        print(f"{label} frame {last} ({tuple(d.shape)}, {'K2' if fused else 'plain MLP'}, graphed): {dt:.3f} s "
+              f"(the first call captures), depth L1 {100 * l1:.3f} cm, color L1 {cl1:.4f}")
         runs[fused] = d, c
     renderer.use_fused = True
     (d, c), (dp, cp) = runs[True], runs[False]
@@ -1470,39 +1784,125 @@ def phase_render(torch, dev, slam, n_importance: int = 0):
     if gap > RENDER_GAP_M:
         fail(f"{label}: K2 moves the mean depth {gap:.3e} m from the plain MLP's (limit {RENDER_GAP_M} m)")
 
+    def check(when):
+        g, e = render(renderer), render(eager)
+        u = render_unpadded(torch, eager, slam.params, c2w, slam.tsdf_volume, depth)
+        equal = {k: torch.equal(a, b) for k, a, b in zip(("depth", "var", "color"), g, e)}
+        unpad = {k: float((a - b).abs().max()) for k, a, b in zip(("depth", "var", "color"), e, u)}
+        print(f"{label} {when}: graphed against eager with the same padding torch.equal {json.dumps(equal)}; the "
+              f"padded against the unpadded eager render, max abs {json.dumps(unpad)}")
+        if not all(equal.values()):
+            fail(f"{label} {when}: the graphed render differs from the eager render with the same padding: "
+                 + json.dumps({k: float((a - b).abs().max()) for k, a, b in zip(("depth", "var", "color"), g, e)}))
+        return g
+
+    before = check("before")
+    # mapping iterations that write the decoders (frame 15 alone, 10 joint
+    # iterations through the mapper's own step programs), then again
+    decoders = [t for name in ("low", "high", "color") for t in tree_leaves(slam.params[name])]
+    held = [t.detach().clone() for t in decoders]  # no autograd node on a leaf: it would pin its stream
+    cur = torch.as_tensor(np.asarray(color, np.float32), device=dev)[None]
+    cur_d = gt_d[None]
+    slam.mapper.optimize_map(slam.params, 10, slam.mapper.lr_factor, last, cur, cur_d, c2w[None].copy(),
+                             generator=slam.generator)
+    torch.cuda.synchronize()
+    written = sum(not torch.equal(a, b) for a, b in zip(decoders, held))
+    if not written:
+        fail(f"{label}: the mapping iterations wrote no decoder leaf")
+    after = check(f"after 10 mapping iterations that wrote {written} decoder leaves")
+    if all(torch.equal(a, b) for a, b in zip(before, after)):
+        fail(f"{label}: the render did not change after the mapping iterations")
+
+    if n_importance:
+        # perturb > 0: the program's importance uniforms are drawn once,
+        # outside its capture, from a generator seeded 0: the draw each
+        # eager chunk takes (and the JAX package's jit, from PRNGKey(0))
+        prcfg = dataclasses.replace(rcfg, perturb=1.0)
+        pg = Renderer(prcfg, slam.scene_cfg.bound, slam.tsdf_bnds, slam.cam, slam.device, graphs=slam.forward_graphs)
+        pe = Renderer(prcfg, slam.scene_cfg.bound, slam.tsdf_bnds, slam.cam, slam.device,
+                      graphs=ForwardGraphs("eager", slam.device))
+        g, e = render(pg), render(pe)
+        equal = {k: torch.equal(a, b) for k, a, b in zip(("depth", "var", "color"), g, e)}
+        moved = float((g[0] - after[0]).abs().max())
+        print(f"{label} perturb=1.0: graphed against eager torch.equal {json.dumps(equal)}; the perturbed draw moves "
+              f"the depth by at most {moved:.3e} m from the deterministic render's")
+        if not all(equal.values()):
+            fail(f"{label} perturb=1.0: the graphed render differs from the eager render: "
+                 + json.dumps({k: float((a - b).abs().max()) for k, a, b in zip(("depth", "var", "color"), g, e)}))
+
+    times = {"graph": [], "eager": []}
+    for mode in ["graph", "eager", "eager", "graph"] * 2:
+        t0 = time.perf_counter()
+        render(renderer if mode == "graph" else eager)
+        times[mode].append(time.perf_counter() - t0)
+    stats = slam.forward_graphs.stats()
+    print(f"{label}: seconds per render, graphed {json.dumps([round(t, 4) for t in times['graph']])} (median "
+          f"{np.median(times['graph']):.4f}), eager {json.dumps([round(t, 4) for t in times['eager']])} (median "
+          f"{np.median(times['eager']):.4f}), {np.median(times['eager']) / np.median(times['graph']):.2f}x; "
+          f"render programs {json.dumps(stats)}")
+    return {"graph_s": float(np.median(times["graph"])), "eager_s": float(np.median(times["eager"]))}
+
 
 def phase_mesh(torch, dev, slam):
     """SLAMSystem.get_mesh on phase 4's map with every frame's pose in the
-    visibility mask (the eval_rec mesh), through K2 and then with the plain
-    MLP, both scored against the GT culled to the frames run: the gap between
-    the two is K2's own, the rest moves with the map between runs."""
+    visibility mask (the eval_rec mesh): graphed (every field-query chunk a
+    replay, K2 inside), then eager with the same padding, which must give
+    equal occupancies on the whole lattice and an equal mesh; then through
+    the plain MLP; all scored against the GT culled to the frames run: the
+    gap between K2 and the plain MLP is K2's own, the rest moves with the
+    map between runs."""
     from attentive_dfprior_tpu_torch.tools.eval_synthetic_demo import score_meshes
+    from attentive_dfprior_tpu_torch.utils.mesher import Mesher
+    from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs
 
     last = ENTRY_END - 1
     m = slam.mesher
-    meshes = []
-    for fused in (True, False):
-        m.use_fused = fused
-        path = os.path.join(slam.output, "mesh", f"chip_smoke_mesh_{'k2' if fused else 'plain'}.ply")
+    eager = Mesher(slam.cfg, slam.cam, slam.scene_cfg.bound, slam.tsdf_bnds, slam.device,
+                   graphs=ForwardGraphs("eager", slam.device))
+    if not m.graphs.graphed:
+        fail(f"mesh: the system's Mesher is not graphed ({m.graphs.mode})")
+    xs, ys, zs = m.get_grid_uniform(m.resolution)
+    lattice = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), axis=-1).reshape(-1, 3).astype(np.float32)
+    occ = {}
+    for name, mesher in (("graphed", m), ("eager", eager)):
+        t0 = time.perf_counter()
+        occ[name] = mesher.eval_points(slam.params, lattice, slam.tsdf_volume_mesh, stage="high")
+        print(f"mesh field query ({name}) over the whole {m.resolution}^3 lattice: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if not np.array_equal(occ["graphed"], occ["eager"]):
+        fail(f"mesh: graphed and eager occupancies differ (max abs {np.abs(occ['graphed'] - occ['eager']).max()})")
+    meshes, labels = [], []
+    for name, mesher, fused in (("graphed, K2", m, True), ("eager, K2", eager, True), ("graphed, plain MLP", m, False)):
+        mesher.use_fused = fused
+        slam.mesher = mesher
+        path = os.path.join(slam.output, "mesh", f"chip_smoke_mesh_{len(meshes)}.ply")
         t0 = time.perf_counter()
         out = slam.get_mesh(path, idx=last, get_mask_use_all_frames=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        slam.mesher = m
+        m.use_fused = True
         if out is None or len(out[1]) == 0:
-            fail(f"mesh (fused={fused}): no surface extracted")
+            fail(f"mesh ({name}): no surface extracted")
         verts, faces = out
         if not np.isfinite(verts).all():
-            fail(f"mesh (fused={fused}): non-finite vertices")
-        t = m.last_timings
-        print(f"mesh: lattice {m.resolution}^3, marching tetrahedra {'native' if m.use_native else 'numpy'}, "
-              f"decoder MLPs through {'K2' if fused else 'the plain MLP'}: {len(verts)} vertices, "
-              f"{len(faces)} faces; field query {t['field_s']:.3f} s, host steps {t['host_s']:.3f} s "
-              f"({wall:.3f} s in all)")
+            fail(f"mesh ({name}): non-finite vertices")
+        t = mesher.last_timings
+        print(f"mesh ({name}): lattice {m.resolution}^3, marching tetrahedra {'native' if m.use_native else 'numpy'}: "
+              f"{len(verts)} vertices, {len(faces)} faces; field query {t['field_s']:.3f} s, host steps "
+              f"{t['host_s']:.3f} s ({wall:.3f} s in all)")
         meshes.append(out)
-    m.use_fused = True
-    for fused, metrics in zip((True, False), score_meshes(slam.cfg, slam.cam, meshes, slam.gt_c2w_list[: last + 1])):
-        print(f"mesh ({'K2' if fused else 'plain MLP'}) vs GT culled to frames 0-{last}: {json.dumps(metrics)} "
-              f"(printed, no gate at {last + 1} frames)")
+        labels.append(name)
+    (v0, f0), (v1, f1) = meshes[0], meshes[1]
+    same = v0.shape == v1.shape and f0.shape == f1.shape and np.array_equal(v0, v1) and np.array_equal(f0, f1)
+    print(f"mesh graphed against eager: occupancies equal on {len(lattice)} lattice points, meshes equal {same}; "
+          f"field-query programs {json.dumps(m.graphs.stats())}")
+    if not same:
+        fail("mesh: the graphed and the eager mesh differ")
+    for name, metrics in zip((labels[0], labels[2]), score_meshes(slam.cfg, slam.cam, [meshes[0], meshes[2]],
+                                                                  slam.gt_c2w_list[: last + 1])):
+        print(f"mesh ({name}) vs GT culled to frames 0-{last}: {json.dumps(metrics)} (printed, no gate at "
+              f"{last + 1} frames)")
 
 
 def phase_room_yaml(torch, dev):
@@ -1787,6 +2187,7 @@ def phase_replica(torch, dev, configs_dir: str):
     check_read_back("replica", ds, frames, depths16, scale, int(cam.get("crop_edge", 0)))
 
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the process's earlier phases
     t0 = time.perf_counter()
     npz = builder.main([REPLICA_ROOM0, "--input_folder", fixture, "--output", "replica_tsdf_volume",
                         "--device", dev.type])
@@ -1794,9 +2195,17 @@ def phase_replica(torch, dev, configs_dir: str):
     build_s = time.perf_counter() - t0
     with np.load(npz) as data:
         shape, observed = data["tsdf"].shape, float(data["observed"].mean())
+    from attentive_dfprior_tpu_torch.ops.cuda import tsdf_kernel
+
+    fused = len(range(0, REPLICA_END, int(cfg["tsdf"]["space"])))
     print(f"builder: {npz}: {shape} = {int(np.prod(shape)) / 1e6:.1f} M voxels of {cfg['tsdf']['voxel_size']} m, "
           f"{100 * observed:.2f} % observed, every {cfg['tsdf']['space']} frame(s); {build_s:.1f} s, peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (PR 13, the eager fusion: "
+          f"{PR13_BUILDER_PEAK_GIB} GiB), {(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB the process held before; K5 launched {tsdf_kernel.KERNEL.launches} times for "
+          f"{fused} frames fused")
+    if tsdf_kernel.KERNEL.launches != fused:
+        fail(f"builder: K5 launched {tsdf_kernel.KERNEL.launches} times for {fused} frames")
 
     out_dir = os.path.join(work, "out")
     argv = [REPLICA_ROOM0, "--input_folder", fixture, "--output", out_dir, "--device", dev.type,
@@ -2343,7 +2752,7 @@ def phase_async_ranks(torch, paths, strict_entry) -> None:
              "alone in its group, so both graph")
 
 
-def phase_harnesses(torch, drive, paths) -> None:
+def phase_harnesses(torch, drive, paths) -> dict:
     """Phase 17, the port's harnesses on the card, each through its own
     ``main``: (a) ``tools/bench.py --workload BENCH_WORKLOAD`` at BENCH_REPS
     reps (the ScanNet shape: 345 M prior voxels, 5000 rays over a window
@@ -2356,7 +2765,7 @@ def phase_harnesses(torch, drive, paths) -> None:
     eager one; (c) ``tools/bench_scaling.py --devices 1 --pixels
     SCALING_PIXELS``, a world of one on NCCL, with the comm model's
     prediction for 2, 4 and 8 H100s; fails on a non-finite loss or without
-    K1 in the child."""
+    K1 in the child. Returns (a)'s median cycle seconds by step mode."""
     from attentive_dfprior_tpu_torch.tools import bench, bench_scaling, profile_mapping
 
     work = tempfile.mkdtemp(prefix="chip_smoke_harnesses_")
@@ -2447,6 +2856,7 @@ def phase_harnesses(torch, drive, paths) -> None:
           f"{model['assumed_link_bw_bidi_bytes_per_s'] / 1e9:.0f} GB/s bidirectional a GPU, from the measured "
           f"{1e3 * model['measured_step_s_1dev']:.3f} ms one-card step): strong "
           f"{json.dumps(model['strong'])}; weak {json.dumps(model['weak'])}; {time.perf_counter() - t0:.1f} s")
+    return {"graph": out["record"]["cycle_s_median"], "eager": out["eager"]["cycle_s_median"]}
 
 
 def phase_ablation(work: str) -> None:
@@ -2543,9 +2953,12 @@ def main() -> None:
             fail(f"the entry point launched K1 (halo fold) {paths['entry']['halo_fold']} times, K2 (decoder "
                  f"MLP) {paths['entry']['decoder_mlp']} times and K4 (cell scatter) {paths['entry']['cell_scatter']} "
                  f"times (expected each > 0)")
+        # the run and its resume each fuse the prior on the fly
+        check_fusion_launches(paths, "entry", 2 * fused_frames(slam))
+        phase_prior_equal(torch, dev, slam)
         done(4)
         if 5 in phases:
-            drive("render", phase_render, torch, dev, slam)
+            render_times = drive("render", phase_render, torch, dev, slam)
             if paths["render"]["decoder_mlp"] <= 0:
                 fail("the render launched no K2 (decoder MLP)")
             drive("render_importance", phase_render, torch, dev, slam, IMPORTANCE_N)
@@ -2577,10 +2990,11 @@ def main() -> None:
         done(9)
     if 10 in phases:
         phase_async_equal(paths)
-        drive("entry_loose", phase_entry_loose, torch, dev, strict_entry)
+        loose = drive("entry_loose", phase_entry_loose, torch, dev, strict_entry)
         if paths["entry_loose"]["halo_fold"] <= 0 or paths["entry_loose"]["decoder_mlp"] <= 0:
             fail(f"the loose entry point launched K1 (halo fold) {paths['entry_loose']['halo_fold']} times and K2 "
                  f"(decoder MLP) {paths['entry_loose']['decoder_mlp']} times (expected both > 0)")
+        check_fusion_launches(paths, "entry_loose", loose)
         done(10)
     if 11 in phases:
         drive("room_tracking_loose", phase_room_tracking, torch, dev, "loose")
@@ -2596,7 +3010,8 @@ def main() -> None:
         phase_scannet_read(configs_dir)
         drive("pretrain", phase_pretrain, torch, dev, PRETRAIN_STEPS)
         drive("pretrain_modes", phase_pretrain_modes, torch, dev)
-        phase_refuse(torch, dev, replica)
+        drive("refuse", phase_refuse, torch, dev, replica)
+        check_fusion_launches(paths, "refuse", 2 * REPLICA_END)  # two meshes re-fused along phase 12's poses
         phase_convert(torch, replica)
         done(13)
     if 15 in phases:
@@ -2606,7 +3021,7 @@ def main() -> None:
         phase_async_ranks(torch, paths, strict_entry)
         done(16)
     if 17 in phases:
-        phase_harnesses(torch, drive, paths)
+        bench_cycle_s = phase_harnesses(torch, drive, paths)
         done(17)
     if 18 in phases:
         drive("ablation", phase_ablation, tempfile.mkdtemp(prefix="chip_smoke_ablation_"))
@@ -2622,15 +3037,19 @@ def main() -> None:
         print(f"phase 3 profile: {time.perf_counter() - t_phase[0]:.1f} s")
         t_phase[0] = time.perf_counter()
     if 17 in phases:
-        profile_bench_cycles(torch, dev)
+        profile_bench_cycles(torch, dev, bench_cycle_s)
         print(f"phase 17(a) profile: {time.perf_counter() - t_phase[0]:.1f} s")
+        t_phase[0] = time.perf_counter()
+    if 4 in phases and 5 in phases:
+        profile_renders(torch, slam, render_times)
+        print(f"phase 5 profile: {time.perf_counter() - t_phase[0]:.1f} s")
     print(f"launches by path: {json.dumps(paths)}")
     print(f"K2 weight images built by path: {json.dumps(images)}")
     if kern is not None:
         def launches(name):
             return sum(p[name] for p in paths.values())
 
-        k1, k2, k3, k4 = kern["K1"], kern["K2"], kern["K3"], kern["K4"]
+        k1, k2, k3, k4, k5 = kern["K1"], kern["K2"], kern["K3"], kern["K4"], kern["K5"]
         line = {"kernels": [
             {"name": "halo_fold", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/halo_fold.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/halo_fold_kernel.py:87",
@@ -2654,6 +3073,13 @@ def main() -> None:
              "bound_by": "bytes", "library_ms": k4[K4_TIMED]["library_ms"],
              "graph_ms": k4[K4_TIMED]["graph_ms"], "library_graph_ms": k4[K4_TIMED]["library_graph_ms"],
              "kernels_per_call": k4[K4_TIMED]["kernels_per_call"]},
+            {"name": "tsdf_integrate", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/tsdf_integrate.cu",
+             "replaces": "attentive_dfprior_tpu/tsdf/fusion.py:32",
+             "launches": launches("tsdf_integrate"), "max_abs_err": k5["max_abs_err"],
+             "ms": k5["room0"]["ms"], "plain_ms": k5["room0"]["plain_ms"], "bound_ms": k5["room0"]["bound_ms"],
+             "bound_by": k5["room0"]["bound_by"], "library_ms": None,
+             "scannet_ms": k5["scannet"]["ms"], "scannet_plain_ms": k5["scannet"]["plain_ms"],
+             "scannet_bound_ms": k5["scannet"]["bound_ms"]},
         ]}
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")
