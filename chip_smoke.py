@@ -39,11 +39,19 @@ Phases (each failure exits non-zero):
      integration, ``torch.equal`` to its plain version in tsdf, weight and
      colour at an odd volume (25x17x13) with edge-case frames (zero depth,
      voxels behind the camera and on its plane, projections on pixel
-     half-boundaries, obs_weight 0.5, frames in sequence), at room0's 196 M
-     voxels with a 680x1200 frame and at ScanNet's 345 M with a 480x640
-     frame, where it is timed beside its plain version and its bound, and
-     its allocation is measured (none by the kernel; the frame's inputs
-     through ``TSDFVolume.integrate``);
+     half-boundaries, obs_weight 0.5, frames in sequence), at odd volumes
+     with the cull's edge cases (a camera inside looking along a diagonal
+     and along -x, NaN / +inf / zero pixels, depths beyond the volume,
+     frames that update nothing, three frames at obs_weight 0.5), at
+     room0's 196 M voxels with a 680x1200 frame and at ScanNet's 345 M with
+     a 480x640 frame; at every frame its runs (``tsdf_kernel.kept_runs``)
+     equal to the plain rule's (``kept_runs_plain``) and holding every voxel
+     the frame updated; at the two large ones timed beside its plain version
+     and its bound (the updated voxels' bytes and operations and the frame
+     read once), its CUDA launches a call and device ms counted by the
+     profiler (3), and its allocation measured (none by the kernel after its
+     first call at a shape; the frame's inputs through
+     ``TSDFVolume.integrate``);
   3. the room0-shape SLAM cycle (``tools/bench.py``'s replica workload,
      from its builder) under the ``halo`` grid gradient (K1) and the
      ``pallas`` one (K3), each with its iterations replayed as CUDA graphs
@@ -658,13 +666,33 @@ def k5_frame(rng, cam, c2w, depth_range=(0.5, 4.0), zero_rows: int = 0, obs_weig
     return depth, color, intr, w2c, obs_weight
 
 
+def k5_look(eye, direction):
+    """c2w (float64) of a camera at ``eye`` looking along ``direction``
+    (OpenCV: +z forward, +y down)."""
+    f = np.asarray(direction, np.float64)
+    f = f / np.linalg.norm(f)
+    up = np.array([0.0, 0.0, 1.0]) if abs(f[2]) < 0.99 else np.array([0.0, 1.0, 0.0])
+    r = np.cross(f, up)
+    r /= np.linalg.norm(r)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([r, np.cross(f, r), f], axis=1)
+    c2w[:3, 3] = eye
+    return c2w
+
+
+K5_OPS_UPDATED = 54  # fp32 operations a voxel the frame updates: 6 to world, 18 to camera, 8 to the pixel, 22 the update
+
+
 def kernel_k5(torch, dev):
     """K5 (TSDF integration) bit for bit against its plain version on the
-    card, at an odd volume with edge-case frames and at room0's and
-    ScanNet's volumes; timed, bounded and its allocation measured at the
-    two large ones."""
+    card, at odd volumes with edge-case frames and at room0's and ScanNet's
+    volumes; its runs (the cull: ``tsdf_kernel.kept_runs``) equal to the
+    plain rule's (``kept_runs_plain``) and holding every voxel each frame
+    updated; timed, bounded, its CUDA launches a call counted and its
+    allocation measured at the two large ones."""
     from attentive_dfprior_tpu_torch.ops.cuda import tsdf_kernel as K5
     from attentive_dfprior_tpu_torch.tools import bench
+    from attentive_dfprior_tpu_torch.tools.profile_scatter import pieces
     from attentive_dfprior_tpu_torch.tsdf.fusion import TSDFVolume
 
     rec = {"max_abs_err": 0.0}
@@ -678,20 +706,45 @@ def kernel_k5(torch, dev):
         depth, color, intr, w2c, ow = frame
         return [torch.as_tensor(a, device=dev) for a in (depth, color, intr, w2c, origin)], ow
 
+    def runs_held(label, dims, voxel, t, updated):
+        """The kernel's runs for frame ``t`` against the plain rule's (equal)
+        and against ``updated``, the voxels the frame updated (inside);
+        returns (columns kept, voxels in the runs)."""
+        depth, _, intr, w2c, origin = t
+        got = K5.kept_runs(depth, intr, w2c, origin, dims, voxel, 5.0 * voxel)
+        want = K5.kept_runs_plain(dims, origin.cpu(), voxel, w2c.cpu(), intr.cpu(), depth.cpu(), 5.0 * voxel)
+        got_cpu = got.cpu()
+        if not torch.equal(got_cpu, want):
+            diff = (got_cpu != want).any(-1)
+            where = diff.nonzero()[:3].tolist()
+            fail(f"K5 {label}: the kernel's runs differ from kept_runs_plain in {int(diff.sum())} of {diff.numel()} "
+                 f"columns, first {where}: kernel {[got_cpu[i, j].tolist() for i, j in where]} plain "
+                 f"{[want[i, j].tolist() for i, j in where]}")
+        z = torch.arange(dims[2], device=dev, dtype=torch.int32)
+        lost = int((updated & ~((z >= got[..., :1]) & (z <= got[..., 1:]))).sum())
+        if lost:
+            fail(f"K5 {label}: {lost} updated voxels lie outside the kernel's runs")
+        length = (got[..., 1] - got[..., 0] + 1).clamp(min=0)
+        return int((length > 0).sum()), int(length.sum())
+
     def case(label, dims, origin, voxel, frames):
         """Both versions from one fresh volume through ``frames``; fails
-        unless tsdf, weight and colour are torch.equal. Returns the K5
-        volume and the voxels the first frame updated."""
+        unless tsdf, weight and colour are torch.equal, or unless each
+        frame's runs are the plain rule's and hold what it updated. Returns
+        the K5 volume and (updated, columns kept, voxels kept) of the first
+        frame."""
         a, b = fresh(dims), fresh(dims)
         origin = np.asarray(origin, np.float32)
-        updated = None
+        stats = []
         for frame in frames:
             t, ow = on_card(frame, origin)
+            before = a[1].clone()
             K5.integrate(*a, *t, voxel, 5.0 * voxel, ow)
             K5.integrate_frame_plain(*b, *t, voxel, 5.0 * voxel, ow)
-            if updated is None:
-                torch.cuda.synchronize()
-                updated = int((a[1] > 0).sum())
+            updated = a[1] != before
+            del before
+            stats.append((int(updated.sum()),) + runs_held(label, dims, voxel, t, updated))
+            del updated
         torch.cuda.synchronize()
         bad = []
         for name, x, y in zip(("tsdf", "weight", "color"), a, b):
@@ -704,18 +757,19 @@ def kernel_k5(torch, dev):
                            f"{where}: K5 {x.reshape(-1)[where].tolist()} plain {y.reshape(-1)[where].tolist()})")
         nvox = int(np.prod(dims))
         print(f"K5 {label}: volume {tuple(dims)} = {nvox / 1e6:.2f} M voxels of {voxel} m, {len(frames)} frame(s) "
-              f"of {frames[0][0].shape[0]}x{frames[0][0].shape[1]}, obs_weight {[f[4] for f in frames]}: first frame "
-              f"updated {updated} voxels; tsdf, weight and colour torch.equal {not bad}", flush=True)
+              f"of {frames[0][0].shape[0]}x{frames[0][0].shape[1]}, obs_weight {[f[4] for f in frames]}; per frame "
+              f"(updated, columns kept, voxels kept): {stats}; runs equal to kept_runs_plain and holding every "
+              f"updated voxel; tsdf, weight and colour torch.equal {not bad}", flush=True)
         if bad:
             fail(f"K5 differs from its plain version at {label}: " + "; ".join(bad))
         del b
-        return a, updated
+        return a, stats[0]
 
-    # odd: 25 x 17 x 13 (no multiple of the 128-thread block), voxel 1/8 m and
-    # the camera at the origin looking along +z, so voxels lie behind the
-    # camera, on its plane (z = 0) and project onto pixel half-boundaries
-    # (u = 4 x / z + 3.5 with x, z multiples of 1/8); two rows of zero depth,
-    # an all-zero frame, obs_weight 0.5, three frames in sequence
+    # odd: 25 x 17 x 13, voxel 1/8 m and the camera at the origin looking
+    # along +z, so voxels lie behind the camera, on its plane (z = 0) and
+    # project onto pixel half-boundaries (u = 4 x / z + 3.5 with x, z
+    # multiples of 1/8); two rows of zero depth, an all-zero frame,
+    # obs_weight 0.5, three frames in sequence
     rng = np.random.default_rng(5)
     cam = dict(H=8, W=8, fx=4.0, fy=4.0, cx=3.5, cy=3.5)
     eye = np.eye(4)
@@ -735,6 +789,36 @@ def kernel_k5(torch, dev):
     case("odd volume, obs_weight 0.5, two frames", odd, (-1.4, -0.9, 0.1), 0.1,
          [k5_frame(rng, cam, eye, obs_weight=0.5), k5_frame(rng, cam, moved, obs_weight=0.5)])
 
+    # the cull's edges: a camera inside an odd volume (the camera plane
+    # through its columns) looking along a diagonal and along -x; NaN, +inf
+    # and zero pixels; depths all beyond the volume; frames that update
+    # nothing (looking away, all depth NaN); three frames in sequence at
+    # obs_weight 0.5
+    cam2 = dict(H=30, W=40, fx=23.7, fy=24.1, cx=19.63, cy=14.41)
+    inner = (37, 29, 33)
+    o2 = (-1.7, -1.3, -1.6)
+    for d in ((1.0, 0.7, 0.4), (-1.0, 0.1, -0.05)):
+        case(f"odd volume, camera inside looking along {d}", inner, o2, 0.1,
+             [k5_frame(rng, cam2, k5_look((0.13, 0.07, 0.11), d), (0.2, 2.5))])
+    depth, color, intr, w2c, ow = k5_frame(rng, cam2, k5_look((0.1, 0.0, -2.4), (0.1, 0.05, 1.0)), (0.3, 3.0))
+    depth[::3, ::2] = np.nan
+    depth[4:7] = 0.0
+    depth[12, 17], depth[20, 5] = np.inf, np.inf
+    case("odd volume, NaN / +inf / zero pixels", inner, o2, 0.1, [(depth, color, intr, w2c, ow)])
+    case("odd volume, depths beyond the volume", inner, o2, 0.1,
+         [k5_frame(rng, cam2, k5_look((0.1, 0.0, -2.4), (0.1, 0.05, 1.0)), (6.0, 9.0))])
+    away = k5_look((0.0, 0.0, -2.4), (0.05, -0.02, -1.0))
+    nothing = k5_frame(rng, cam2, away, (0.5, 6.0))
+    _, (n_upd, n_cols, n_kept) = case("odd volume, looking away: updates nothing", inner, o2, 0.1, [nothing])
+    all_nan = k5_frame(rng, cam2, k5_look((0.1, 0.0, -2.4), (0.1, 0.05, 1.0)))
+    all_nan[0][:] = np.nan
+    _, (n2_upd, n2_cols, n2_kept) = case("odd volume, all depth NaN: updates nothing", inner, o2, 0.1, [all_nan])
+    if n_upd or n_kept or n2_upd or n2_kept:
+        fail(f"K5: a frame that updates nothing kept {n_kept} / {n2_kept} voxels, updated {n_upd} / {n2_upd}")
+    case("odd volume, 3 frames in sequence, obs_weight 0.5", inner, o2, 0.1,
+         [k5_frame(rng, cam2, k5_look((0.1 * k, 0.05, -2.4), (0.1, 0.05 * k, 1.0)), (0.5, 3.5), zero_rows=k,
+                   obs_weight=0.5) for k in range(3)])
+
     # the main path's volumes: room0 (phase 12) with a 680x1200 frame, and
     # ScanNet's 345.0 M voxels with a 480x640 frame (the bench's shape),
     # each camera at (2, 1, 0) looking along +z
@@ -746,7 +830,7 @@ def kernel_k5(torch, dev):
         c2w[:3, 3] = [2.0, 1.0, 0.0]
         frame = k5_frame(np.random.default_rng(6), w["cam"], c2w)
         label = "room0" if name == "replica" else "scannet"
-        a, updated = case(f"{label} volume, one frame", dims, bnds[:, 0], bench.VOXEL, [frame])
+        a, (updated, cols, kept) = case(f"{label} volume, one frame", dims, bnds[:, 0], bench.VOXEL, [frame])
         t, ow = on_card(frame, bnds[:, 0].astype(np.float32))
         args = (*t, bench.VOXEL, 5.0 * bench.VOXEL, ow)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -755,23 +839,27 @@ def kernel_k5(torch, dev):
         torch.cuda.synchronize()
         kernel_alloc = torch.cuda.max_memory_allocated(dev) - base
         ms = time_ms(torch, lambda: K5.integrate(*a, *args))
+        prof = pieces(lambda: K5.integrate(*a, *args))
         plain_ms = time_ms(torch, lambda: K5.integrate_frame_plain(*a, *args), reps=5, inner=2, warmup=1)
-        # the bound: every voxel projected (32 fp32 operations in front of the
-        # camera: 6 to world, 18 to camera, 8 to the pixel; 12 behind it), 22
-        # more and 20 B read + 20 B written per voxel the frame updates, the
+        # the bound counts what this frame needs: the voxels it updates
+        # read and written (20 B each way) with their operations, and the
         # frame read once
         X, Y, Z = dims
+        nvox = X * Y * Z
+        nbytes = 40 * updated + sum(x.numel() * 4 for x in t)
+        ops = K5_OPS_UPDATED * updated
+        ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        # for continuity, a one-thread-a-voxel design's own work: every
+        # voxel projected (32 operations in front of the camera, 12 behind)
         wc = t[3]
         ix = [torch.arange(n, device=dev, dtype=torch.float32) * bench.VOXEL + float(o)
               for n, o in zip(dims, bnds[:, 0].astype(np.float32))]
         cz = (wc[2, 0] * ix[0].view(X, 1, 1) + wc[2, 1] * ix[1].view(1, Y, 1)) + wc[2, 2] * ix[2].view(1, 1, Z)
         front = int(((cz + wc[2, 3]) > 0).sum())
         del cz
-        nvox = X * Y * Z
-        ops = 32 * front + 12 * (nvox - front) + 22 * updated
-        nbytes = 40 * updated + sum(x.numel() * 4 for x in t)
-        ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
+        old_ops = 32 * front + 12 * (nvox - front) + 22 * updated
+        old_ms = max(old_ops / PEAK_FP32_FLOPS * 1e3, bytes_ms)
         del a
         torch.cuda.empty_cache()
         # through the builder's entry (TSDFVolume.integrate, frame from host
@@ -788,20 +876,29 @@ def kernel_k5(torch, dev):
         frame_bytes = depth.nbytes + color.nbytes + intr.nbytes + 16 * 4 + 3 * 4
         del vol
         torch.cuda.empty_cache()
-        print(f"K5 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4f} "
-              f"ms by {'operations' if ops_ms >= bytes_ms else 'bytes'} (operations {ops / 1e9:.2f} G: {ops_ms:.4f} "
-              f"ms at 67 TFLOP/s, {front} of {nvox} voxels in front of the camera; bytes {nbytes / 1e6:.1f} MB: "
-              f"{bytes_ms:.4f} ms), {100 * bound_ms / ms:.1f} % of it; {updated} voxels updated "
-              f"({100 * updated / nvox:.2f} %); allocated by the kernel's call {kernel_alloc} B, by "
-              f"TSDFVolume.integrate {entry_alloc} B (the frame's inputs {frame_bytes} B); library: none, no single "
-              f"PyTorch call computes it", flush=True)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"K5 {label}: kernel {ms:.4f} ms (CUDA events), device {prof['device_ms_per_call']:.4f} ms in "
+              f"{prof['kernels_per_call']:.1f} CUDA launches a call (" + "; ".join(
+                  f"{c:.1f} x {d:.4f} ms {n[:40]}" for n, (c, d) in prof["pieces"].items()) + f"); plain "
+              f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4f} ms by {bound_by} (bytes "
+              f"{nbytes / 1e6:.1f} MB: {bytes_ms:.4f} ms; operations {ops / 1e9:.3f} G: {ops_ms:.4f} ms at 67 "
+              f"TFLOP/s), {100 * bound_ms / ms:.1f} % of it; the one-thread-a-voxel design's operations (every voxel projected, "
+              f"{front} of {nvox} in front of the camera) {old_ops / 1e9:.2f} G, {old_ms:.4f} ms; {updated} voxels "
+              f"updated ({100 * updated / nvox:.2f} %), {cols} of {X * Y} columns kept, {kept} voxels in their runs "
+              f"({100 * kept / nvox:.2f} %, {kept / max(updated, 1):.2f} a voxel updated); allocated by the kernel's "
+              f"call {kernel_alloc} B, by TSDFVolume.integrate {entry_alloc} B (the frame's inputs {frame_bytes} B); "
+              f"library: none, no single PyTorch call computes it", flush=True)
         if kernel_alloc != 0:
             fail(f"K5 allocated {kernel_alloc} B at {label} (expected none)")
         if entry_alloc > frame_bytes + 64 * 2**20:
             fail(f"TSDFVolume.integrate allocated {entry_alloc} B at {label}, above the frame's {frame_bytes} B "
                  f"+ 64 MiB")
-        rec[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by="operations" if ops_ms >= bytes_ms else "bytes", updated=updated, voxels=nvox,
+        if prof["kernels_per_call"] != K5.LAUNCHES_PER_CALL:
+            fail(f"K5 made {prof['kernels_per_call']} CUDA launches a call at {label} "
+                 f"(expected {K5.LAUNCHES_PER_CALL})")
+        rec[label] = dict(ms=ms, device_ms=prof["device_ms_per_call"], cuda_launches=prof["kernels_per_call"],
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, every_voxel_design_ms=old_ms,
+                          updated=updated, columns_kept=cols, voxels_kept=kept, voxels=nvox,
                           kernel_alloc=kernel_alloc, entry_alloc=entry_alloc)
     return rec
 
@@ -3078,8 +3175,10 @@ def main() -> None:
              "launches": launches("tsdf_integrate"), "max_abs_err": k5["max_abs_err"],
              "ms": k5["room0"]["ms"], "plain_ms": k5["room0"]["plain_ms"], "bound_ms": k5["room0"]["bound_ms"],
              "bound_by": k5["room0"]["bound_by"], "library_ms": None,
+             "device_ms": k5["room0"]["device_ms"], "cuda_launches_per_call": k5["room0"]["cuda_launches"],
+             "voxels_updated": k5["room0"]["updated"], "voxels_kept": k5["room0"]["voxels_kept"],
              "scannet_ms": k5["scannet"]["ms"], "scannet_plain_ms": k5["scannet"]["plain_ms"],
-             "scannet_bound_ms": k5["scannet"]["bound_ms"]},
+             "scannet_bound_ms": k5["scannet"]["bound_ms"], "scannet_device_ms": k5["scannet"]["device_ms"]},
         ]}
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")
