@@ -1,0 +1,10 @@
+"""Device kernels (copies and fills left out) in the traced renders over their chunks of rays."""
+
+from benchmark.metrics._trace import kernel_count
+
+
+def read(record):
+    t = record.get("trace")
+    if not t:
+        return None
+    return kernel_count(t["device"]) / t["chunks"]
