@@ -29,6 +29,7 @@ import torch
 
 from attentive_dfprior_tpu_torch.models.decoders import mlp_decoder_forward
 from attentive_dfprior_tpu_torch.ops.cuda.build import CudaKernel, check_launch
+from attentive_dfprior_tpu_torch.utils.profiling import span
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 
 EMBED = 93
@@ -313,7 +314,8 @@ class StaticImages:
         self.copies = 0
 
     def refresh(self) -> None:
-        with torch.no_grad():
+        with span("StaticImages.refresh") as s, torch.no_grad():
+            before = self.copies
             for i, dec in enumerate(self.decoders):
                 image = TC_CACHE.get(dec)
                 if i == len(self.images):
@@ -326,6 +328,8 @@ class StaticImages:
                     self.images[i].copy_(image)
                     self._copied[i] = image
                     self.copies += 1
+            if s is not None:
+                s.attrs["copies"] = self.copies - before
 
     def pinned(self) -> contextlib.AbstractContextManager:
         return pinned_images([(tree_leaves(d), im) for d, im in zip(self.decoders, self.images)])

@@ -22,6 +22,7 @@ import torch
 from attentive_dfprior_tpu_torch.models.decoders import df_forward, query_points, stage_images
 from attentive_dfprior_tpu_torch.ops.compositing import raw2outputs
 from attentive_dfprior_tpu_torch.ops.rays import get_rays_full_image, ray_bound_intersection, sample_pdf
+from attentive_dfprior_tpu_torch.utils.profiling import span
 from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs, pad_rows, tensor_key
 
 
@@ -291,13 +292,14 @@ class Renderer:
         run = self._chunk_fn(params, tsdf_volume, stage, no_gt)
         outs = None
         for i in range(0, n, self.ray_batch_size):
-            m = min(self.ray_batch_size, n - i)
-            res = run(rays_o[i : i + m].contiguous(), rays_d[i : i + m].contiguous(), gt[i : i + m], depth_max)
-            if outs is None:
-                outs = [torch.empty((n,) + tuple(r.shape[1:]), dtype=r.dtype, device=r.device)
-                        for r in res[:outputs]]
-            for out, r in zip(outs, res):
-                out[i : i + m] = r[:m]
+            with span("Renderer.chunk", chunk=i // self.ray_batch_size):
+                m = min(self.ray_batch_size, n - i)
+                res = run(rays_o[i : i + m].contiguous(), rays_d[i : i + m].contiguous(), gt[i : i + m], depth_max)
+                if outs is None:
+                    outs = [torch.empty((n,) + tuple(r.shape[1:]), dtype=r.dtype, device=r.device)
+                            for r in res[:outputs]]
+                for out, r in zip(outs, res):
+                    out[i : i + m] = r[:m]
         return outs
 
     @torch.no_grad()
@@ -329,17 +331,18 @@ class Renderer:
         Returns:
             depth (H, W), depth_var (H, W), color (H, W, 3) tensors.
         """
-        cam = self.cam
-        c2w_t = torch.as_tensor(np.array(c2w, dtype=np.float32), device=self.device)
-        rays_o, rays_d = get_rays_full_image(cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy, c2w_t)
-        rays_o = rays_o.reshape(-1, 3)
-        rays_d = rays_d.reshape(-1, 3)
-        n = rays_o.shape[0]
-        no_gt = gt_depth is None
-        gt = (
-            torch.zeros((n,), dtype=torch.float32, device=self.device)
-            if no_gt
-            else torch.as_tensor(np.asarray(gt_depth), dtype=torch.float32, device=self.device).reshape(-1)
-        )
-        depth, unc, color = self._render(params, rays_o, rays_d, gt, tsdf_volume, stage, no_gt, None, 3)
-        return depth.reshape(cam.H, cam.W), unc.reshape(cam.H, cam.W), color.reshape(cam.H, cam.W, 3)
+        with span("Renderer.render_img"):
+            cam = self.cam
+            c2w_t = torch.as_tensor(np.array(c2w, dtype=np.float32), device=self.device)
+            rays_o, rays_d = get_rays_full_image(cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy, c2w_t)
+            rays_o = rays_o.reshape(-1, 3)
+            rays_d = rays_d.reshape(-1, 3)
+            n = rays_o.shape[0]
+            no_gt = gt_depth is None
+            gt = (
+                torch.zeros((n,), dtype=torch.float32, device=self.device)
+                if no_gt
+                else torch.as_tensor(np.asarray(gt_depth), dtype=torch.float32, device=self.device).reshape(-1)
+            )
+            depth, unc, color = self._render(params, rays_o, rays_d, gt, tsdf_volume, stage, no_gt, None, 3)
+            return depth.reshape(cam.H, cam.W), unc.reshape(cam.H, cam.W), color.reshape(cam.H, cam.W, 3)

@@ -4,7 +4,7 @@ Usage:
     python -m attentive_dfprior_tpu_torch.run configs/Synthetic/room_tracking.yaml \\
         [--end_idx N] [--output O] [--input_folder F] [--resume] [--seed S]
         [--device cuda|cuda:N|cpu] [--grid-vjp halo|bitfold|cellstencil|xla|sorted|pallas]
-        [--adam-nonlazy] [--eager] [--multihost] [--init_only] [--set key.sub=value ...]
+        [--adam-nonlazy] [--eager] [--multihost] [--init_only] [--profile DIR] [--set key.sub=value ...]
 
     # ray-axis data parallelism over N cards of one host (strict, loose or free)
     torchrun --nproc_per_node N -m attentive_dfprior_tpu_torch.run <cfg> --set parallel.enable=true
@@ -28,7 +28,9 @@ asked for by name) always runs eager. ``--set``
 overrides config entries after loading (values parsed as YAML scalars),
 e.g. ``--set mapping.vis_freq=5``; ``--set sync_method=loose`` (or
 ``free``) runs the mapper on a worker thread of its own
-(``slam/system.py:_run_async``).
+(``slam/system.py:_run_async``). ``--profile DIR`` traces the run with
+``torch.profiler`` into ``DIR`` and writes the program's spans beside the
+trace, on its clock (``utils/profiling.py:torch_trace``).
 
 ``--multihost`` (or ``parallel.multihost: True``) joins the process group
 from the launcher's environment (``parallel/sharding.py:init_distributed``:
@@ -56,6 +58,7 @@ from attentive_dfprior_tpu_torch.config import default_config_path, load_config,
 from attentive_dfprior_tpu_torch.ops.grid_sample import GRID_VJPS
 from attentive_dfprior_tpu_torch.parallel.sharding import init_distributed
 from attentive_dfprior_tpu_torch.utils.device import resolve_device
+from attentive_dfprior_tpu_torch.utils.profiling import torch_trace
 
 
 def apply_overrides(cfg: Dict[str, Any], overrides: List[str]) -> None:
@@ -98,6 +101,8 @@ def main(argv: Optional[List[str]] = None):
                         help="set up the runtime (and with --multihost the process group), print it and exit")
     parser.add_argument("--set", dest="overrides", action="append", default=[],
                         help="config override key.sub=value (repeatable)")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="trace the run with torch.profiler into DIR, the program's spans beside it")
     args = parser.parse_args(argv)
 
     np.random.seed(args.seed)
@@ -137,7 +142,8 @@ def main(argv: Optional[List[str]] = None):
         if ckpt:
             start = slam.resume(ckpt)
             print(f"Resumed from {ckpt}; continuing at frame {start}")
-    slam.run(start_idx=start, end_idx=args.end_idx)
+    with torch_trace(args.profile):
+        slam.run(start_idx=start, end_idx=args.end_idx)
     print(f"render and field-query programs: {json.dumps(slam.forward_graphs.stats())}", flush=True)
     return slam
 

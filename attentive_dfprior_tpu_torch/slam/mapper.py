@@ -42,6 +42,7 @@ from attentive_dfprior_tpu_torch.ops.adam import AdamState, adam_update
 from attentive_dfprior_tpu_torch.ops.pose import pose_matrix_from_tensor, pose_tensor_from_matrix
 from attentive_dfprior_tpu_torch.ops.rays import get_samples, ray_bound_intersection
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, render_rays
+from attentive_dfprior_tpu_torch.utils.profiling import span
 from attentive_dfprior_tpu_torch.utils.step_graph import StaticScalars, StepGraphs, resolve_step_mode, tensor_key
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -548,95 +549,102 @@ class Mapper:
             (params, {stage: last-iteration loss}, refined window c2w
              (F, 4, 4) when BA ran else None, {stage: per-iteration losses}).
         """
-        F = frames_color.shape[0]
-        pixs_per_image = self.mapping_pixels // F
-        low_ratio = 0.0 if color_refine else None
-        high_ratio = 0.0 if color_refine else None
-        fix_color = True if color_refine else self.scene_cfg.fix_color
-        use_frustum = self.frustum_feature_selection and not color_refine
+        with span("Mapper.optimize_map", frame=idx):
+            F = frames_color.shape[0]
+            pixs_per_image = self.mapping_pixels // F
+            low_ratio = 0.0 if color_refine else None
+            high_ratio = 0.0 if color_refine else None
+            fix_color = True if color_refine else self.scene_cfg.fix_color
+            use_frustum = self.frustum_feature_selection and not color_refine
 
-        frustum_masks = None
-        if use_frustum and cur_depth_np is not None:
-            frustum_masks = {
-                k: torch.as_tensor(
-                    get_frustum_mask(
-                        cur_c2w_np, tuple(params[k].shape[:3]),
-                        np.asarray(self.scene_cfg.bound), cur_depth_np, self.cam,
-                    )[..., None],
-                    dtype=torch.float32, device=self.device,
-                )
-                for k in GRID_KEYS
-            }
+            frustum_masks = None
+            if use_frustum and cur_depth_np is not None:
+                with span("Mapper.frustum_masks"):
+                    frustum_masks = {
+                        k: torch.as_tensor(
+                            get_frustum_mask(
+                                cur_c2w_np, tuple(params[k].shape[:3]),
+                                np.asarray(self.scene_cfg.bound), cur_depth_np, self.cam,
+                            )[..., None],
+                            dtype=torch.float32, device=self.device,
+                        )
+                        for k in GRID_KEYS
+                    }
 
-        for t in tree_leaves(params):
-            t.requires_grad_(True)
-        # the window in static buffers (one set per window size F), so the
-        # stage programs of every frame read the same addresses
-        g = self.graphs
-        frames_color = g.static(("color", F), frames_color)
-        frames_depth = g.static(("depth", F), frames_depth)
-        frames_c2w_t = g.static(("c2w", F), torch.as_tensor(np.asarray(frames_c2w), dtype=torch.float32,
-                                                            device=self.device))
-        if frustum_masks is not None:
-            frustum_masks = {k: g.static(("frustum", k), v) for k, v in frustum_masks.items()}
-        ba_on = self.ba and not color_refine and F >= 3
-        scene_state = g.adam("scene", params)  # zeroed: a fresh state for this frame
-        if ba_on:
-            pose_t0 = g.static(("pose", F), torch.as_tensor(
-                np.stack([pose_tensor_from_matrix(np.asarray(frames_c2w[i])) for i in range(F)]),
-                dtype=torch.float32, device=self.device,
-            ), requires_grad=True)
-            pose_mask = g.static(("pose_mask", F), torch.ones((F,), dtype=torch.float32, device=self.device))
-            pose_mask[int(ba_anchor)] = 0.0  # gauge anchor
-            opt = {"scene": params, "pose": pose_t0}
-            pose_state = g.adam(("pose", F), pose_t0)
-            adam_state = AdamState(*({"scene": a, "pose": b} for a, b in zip(scene_state, pose_state)))
-        else:
-            pose_mask = None
-            opt = params
-            adam_state = scene_state
+            with span("Mapper.window"):
+                for t in tree_leaves(params):
+                    t.requires_grad_(True)
+                # the window in static buffers (one set per window size F), so
+                # the stage programs of every frame read the same addresses
+                g = self.graphs
+                frames_color = g.static(("color", F), frames_color)
+                frames_depth = g.static(("depth", F), frames_depth)
+                frames_c2w_t = g.static(("c2w", F), torch.as_tensor(np.asarray(frames_c2w), dtype=torch.float32,
+                                                                    device=self.device))
+                if frustum_masks is not None:
+                    frustum_masks = {k: g.static(("frustum", k), v) for k, v in frustum_masks.items()}
+                ba_on = self.ba and not color_refine and F >= 3
+                scene_state = g.adam("scene", params)  # zeroed: a fresh state for this frame
+                if ba_on:
+                    pose_t0 = g.static(("pose", F), torch.as_tensor(
+                        np.stack([pose_tensor_from_matrix(np.asarray(frames_c2w[i])) for i in range(F)]),
+                        dtype=torch.float32, device=self.device,
+                    ), requires_grad=True)
+                    pose_mask = g.static(("pose_mask", F), torch.ones((F,), dtype=torch.float32, device=self.device))
+                    pose_mask[int(ba_anchor)] = 0.0  # gauge anchor
+                    opt = {"scene": params, "pose": pose_t0}
+                    pose_state = g.adam(("pose", F), pose_t0)
+                    adam_state = AdamState(*({"scene": a, "pose": b} for a, b in zip(scene_state, pose_state)))
+                else:
+                    pose_mask = None
+                    opt = params
+                    adam_state = scene_state
 
-        vis_this_frame = (
-            visualizer is not None
-            and cur_depth_np is not None
-            and cur_color_np is not None
-            and idx % visualizer.freq == 0
-        )
-        losses: Dict[str, float] = {}
-        stage_losses: Dict[str, torch.Tensor] = {}
-        for stage, s, e in self._stage_schedule(num_joint_iters, low_ratio, high_ratio):
-            n = e - s + 1
-            eff_low = self.low_iter_ratio if low_ratio is None else low_ratio
-            lo_end = int(num_joint_iters * eff_low)
-            # warm-up attention regularizer iterations (ref: Mapper.py:459-461)
-            w_flags = [1.0 if (idx <= 1 and lo_end < (s + i) <= lo_end + 5) else 0.0 for i in range(n)]
-            lrs = StageLRs(*[v * lr_factor for v in self.stage_lrs[stage]])
-            # chunk starts: the panel iterations inside the stage
-            starts = [0]
-            if vis_this_frame:
-                starts += [a for a in range(1, n) if (s + a) % visualizer.inside_freq == 0]
-            chunks = []
-            for a, b in zip(starts, starts[1:] + [n]):
-                if vis_this_frame and (s + a) % visualizer.inside_freq == 0:
-                    visualizer.vis(idx, s + a, cur_depth_np, cur_color_np, cur_c2w_np, params, self.tsdf_volume)
-                chunks.append(mapping_stage(
-                    opt, adam_state, frames_color, frames_depth, frames_c2w_t,
-                    frustum_masks, self.tsdf_volume, self.tsdf_bnds, self.bound,
-                    b - a, w_flags[a:b], lrs, stage, pixs_per_image, self.cam, self.rcfg,
-                    (self.scene_cfg.fix_high, fix_color), self.w_color_loss,
-                    generator=generator,
-                    pixel_idx=None if pixel_idx is None else pixel_idx[stage][a:b],
-                    accum=self.accum, ba=ba_on, pose_mask=pose_mask,
-                    ba_cam_lr=self.ba_cam_lr, grid_vjp=self.grid_vjp,
-                    adam_lazy=self.adam_lazy, shards=self.shards, graphs=self.graphs,
-                ))
-            stage_losses[stage] = torch.cat(chunks)
-        for stage, ls in stage_losses.items():
-            losses[stage] = float(ls[-1])
-        if ba_on:
-            with torch.no_grad():
-                mats34 = pose_matrix_from_tensor(opt["pose"]).cpu().numpy()
-            refined = np.tile(np.eye(4, dtype=np.float32), (F, 1, 1))
-            refined[:, :3, :] = mats34
-            return params, losses, refined, stage_losses
-        return params, losses, None, stage_losses
+            vis_this_frame = (
+                visualizer is not None
+                and cur_depth_np is not None
+                and cur_color_np is not None
+                and idx % visualizer.freq == 0
+            )
+            losses: Dict[str, float] = {}
+            stage_losses: Dict[str, torch.Tensor] = {}
+            for stage, s, e in self._stage_schedule(num_joint_iters, low_ratio, high_ratio):
+                n = e - s + 1
+                with span("Mapper.stage", stage=stage, iterations=n):
+                    eff_low = self.low_iter_ratio if low_ratio is None else low_ratio
+                    lo_end = int(num_joint_iters * eff_low)
+                    # warm-up attention regularizer iterations (ref: Mapper.py:459-461)
+                    w_flags = [1.0 if (idx <= 1 and lo_end < (s + i) <= lo_end + 5) else 0.0 for i in range(n)]
+                    lrs = StageLRs(*[v * lr_factor for v in self.stage_lrs[stage]])
+                    # chunk starts: the panel iterations inside the stage
+                    starts = [0]
+                    if vis_this_frame:
+                        starts += [a for a in range(1, n) if (s + a) % visualizer.inside_freq == 0]
+                    chunks = []
+                    for a, b in zip(starts, starts[1:] + [n]):
+                        if vis_this_frame and (s + a) % visualizer.inside_freq == 0:
+                            visualizer.vis(idx, s + a, cur_depth_np, cur_color_np, cur_c2w_np, params,
+                                           self.tsdf_volume)
+                        chunks.append(mapping_stage(
+                            opt, adam_state, frames_color, frames_depth, frames_c2w_t,
+                            frustum_masks, self.tsdf_volume, self.tsdf_bnds, self.bound,
+                            b - a, w_flags[a:b], lrs, stage, pixs_per_image, self.cam, self.rcfg,
+                            (self.scene_cfg.fix_high, fix_color), self.w_color_loss,
+                            generator=generator,
+                            pixel_idx=None if pixel_idx is None else pixel_idx[stage][a:b],
+                            accum=self.accum, ba=ba_on, pose_mask=pose_mask,
+                            ba_cam_lr=self.ba_cam_lr, grid_vjp=self.grid_vjp,
+                            adam_lazy=self.adam_lazy, shards=self.shards, graphs=self.graphs,
+                        ))
+                    stage_losses[stage] = torch.cat(chunks)
+            with span("Mapper.losses_to_host"):  # waits for the device
+                for stage, ls in stage_losses.items():
+                    losses[stage] = float(ls[-1])
+                if ba_on:
+                    with torch.no_grad():
+                        mats34 = pose_matrix_from_tensor(opt["pose"]).cpu().numpy()
+            if ba_on:
+                refined = np.tile(np.eye(4, dtype=np.float32), (F, 1, 1))
+                refined[:, :3, :] = mats34
+                return params, losses, refined, stage_losses
+            return params, losses, None, stage_losses

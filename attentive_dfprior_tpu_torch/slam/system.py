@@ -81,7 +81,7 @@ from attentive_dfprior_tpu_torch.utils.datasets import get_dataset
 from attentive_dfprior_tpu_torch.utils.device import resolve_device
 from attentive_dfprior_tpu_torch.utils.logger import Logger, load_checkpoint
 from attentive_dfprior_tpu_torch.utils.mesher import Mesher
-from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer
+from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer, span
 from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 from attentive_dfprior_tpu_torch.utils.visualizer import Visualizer
@@ -453,32 +453,33 @@ class SLAMSystem:
     def _select_window(self, cur_color, cur_depth, cur_c2w, window_size=None):
         """Optimization window: overlap-selected keyframes + the most recent
         keyframe + the current frame (ref: src/Mapper.py:288-304)."""
-        if window_size is None:
-            window_size = self.mapper.mapping_window_size
-        K = len(self.keyframes)
-        sel: list = []
-        if K > 0:
-            if self.mapper.keyframe_selection_method == "overlap" and K > 1:
-                sel = keyframe_selection_overlap(
-                    self._np_rng, cur_depth, cur_c2w.astype(np.float64),
-                    self.keyframes.poses_np()[: K - 1], window_size - 2,
-                    self.cam.H, self.cam.W, self.cam.fx, self.cam.fy, self.cam.cx, self.cam.cy,
-                )
-            elif self.mapper.keyframe_selection_method == "global" and K > 1:
-                perm = self._np_rng.permutation(K - 1)
-                sel = [int(i) for i in perm[: window_size - 2]]
-            sel = sel + [K - 1]
-        slots = np.asarray(sel, dtype=np.int64)
-        cur_c = self._to_device(cur_color)[None]
-        cur_d = self._to_device(cur_depth)[None]
-        if len(slots) > 0:
-            sl = torch.as_tensor(slots, device=self.device)
-            f_color = torch.cat([self.keyframes.color.index_select(0, sl), cur_c], dim=0)
-            f_depth = torch.cat([self.keyframes.depth.index_select(0, sl), cur_d], dim=0)
-            f_c2w = np.concatenate([self.keyframes.est_c2w[slots], cur_c2w[None]], axis=0)
-        else:
-            f_color, f_depth, f_c2w = cur_c, cur_d, cur_c2w[None]
-        return f_color, f_depth, f_c2w, slots
+        with span("SLAMSystem._select_window"):
+            if window_size is None:
+                window_size = self.mapper.mapping_window_size
+            K = len(self.keyframes)
+            sel: list = []
+            if K > 0:
+                if self.mapper.keyframe_selection_method == "overlap" and K > 1:
+                    sel = keyframe_selection_overlap(
+                        self._np_rng, cur_depth, cur_c2w.astype(np.float64),
+                        self.keyframes.poses_np()[: K - 1], window_size - 2,
+                        self.cam.H, self.cam.W, self.cam.fx, self.cam.fy, self.cam.cx, self.cam.cy,
+                    )
+                elif self.mapper.keyframe_selection_method == "global" and K > 1:
+                    perm = self._np_rng.permutation(K - 1)
+                    sel = [int(i) for i in perm[: window_size - 2]]
+                sel = sel + [K - 1]
+            slots = np.asarray(sel, dtype=np.int64)
+            cur_c = self._to_device(cur_color)[None]
+            cur_d = self._to_device(cur_depth)[None]
+            if len(slots) > 0:
+                sl = torch.as_tensor(slots, device=self.device)
+                f_color = torch.cat([self.keyframes.color.index_select(0, sl), cur_c], dim=0)
+                f_depth = torch.cat([self.keyframes.depth.index_select(0, sl), cur_d], dim=0)
+                f_c2w = np.concatenate([self.keyframes.est_c2w[slots], cur_c2w[None]], axis=0)
+            else:
+                f_color, f_depth, f_c2w = cur_c, cur_d, cur_c2w[None]
+            return f_color, f_depth, f_c2w, slots
 
     def _map_frame(self, idx, color, depth, c2w, gt_c2w, first: bool):
         color_refine = not first and idx == self.n_img - 1 and self.color_refine

@@ -39,6 +39,7 @@ from attentive_dfprior_tpu_torch.ops.pose import (
 )
 from attentive_dfprior_tpu_torch.ops.rays import get_samples, ray_bound_intersection
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, render_rays
+from attentive_dfprior_tpu_torch.utils.profiling import span
 from attentive_dfprior_tpu_torch.utils.step_graph import StaticScalars, StepGraphs, resolve_step_mode, tensor_key
 
 
@@ -171,78 +172,79 @@ def track_frame(
         best tensor (7,), losses (n_iters,), final tensor (7,), pre-step
         tensors (n_iters, 7).
     """
-    init = init_camera_tensor.detach().to(torch.float32)
-    dev = init.device
-    if graphs is None:
-        graphs = StepGraphs("eager", dev)
-    scene = graphs.scene(params)
-    names = ("quad", "T") if seperate_LR else ("cam",)
-    replayed = pixel_idx is not None
-    key = ("track", names, tuple(color_im.shape), cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy, rcfg, batch_size,
-           ignore_edge_W, ignore_edge_H, handle_dynamic, use_color, float(w_color_loss), grid_vjp, adam_lazy,
-           replayed, None if replayed else generator, id(shards),
-           tensor_key(scene, tsdf_volume, tsdf_bnds, bound))
+    with span("Tracker.inputs"):  # the frame into the program's static buffers
+        init = init_camera_tensor.detach().to(torch.float32)
+        dev = init.device
+        if graphs is None:
+            graphs = StepGraphs("eager", dev)
+        scene = graphs.scene(params)
+        names = ("quad", "T") if seperate_LR else ("cam",)
+        replayed = pixel_idx is not None
+        key = ("track", names, tuple(color_im.shape), cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy, rcfg, batch_size,
+               ignore_edge_W, ignore_edge_H, handle_dynamic, use_color, float(w_color_loss), grid_vjp, adam_lazy,
+               replayed, None if replayed else generator, id(shards),
+               tensor_key(scene, tsdf_volume, tsdf_bnds, bound))
 
-    def make():
-        sizes = {"quad": 4, "T": 3, "cam": 7}
-        cams = {n: torch.zeros((sizes[n],), dtype=torch.float32, device=dev).requires_grad_(True) for n in names}
-        adam = adam_init(cams)
-        scalars = StaticScalars(len(names), dev)
-        lr_tree = {n: scalars.values[i] for i, n in enumerate(names)}
-        color = torch.zeros(color_im.shape, dtype=torch.float32, device=dev)
-        depth = torch.zeros(depth_im.shape, dtype=torch.float32, device=dev)
-        pix = torch.zeros((batch_size,), dtype=torch.int64, device=dev) if replayed else None
-        best_loss = torch.zeros((), dtype=torch.float32, device=dev)
-        best = torch.zeros((7,), dtype=torch.float32, device=dev)
-        out = torch.zeros((8,), dtype=torch.float32, device=dev)  # the loss, then the pre-step tensor
+        def make():
+            sizes = {"quad": 4, "T": 3, "cam": 7}
+            cams = {n: torch.zeros((sizes[n],), dtype=torch.float32, device=dev).requires_grad_(True) for n in names}
+            adam = adam_init(cams)
+            scalars = StaticScalars(len(names), dev)
+            lr_tree = {n: scalars.values[i] for i, n in enumerate(names)}
+            color = torch.zeros(color_im.shape, dtype=torch.float32, device=dev)
+            depth = torch.zeros(depth_im.shape, dtype=torch.float32, device=dev)
+            pix = torch.zeros((batch_size,), dtype=torch.int64, device=dev) if replayed else None
+            best_loss = torch.zeros((), dtype=torch.float32, device=dev)
+            best = torch.zeros((7,), dtype=torch.float32, device=dev)
+            out = torch.zeros((8,), dtype=torch.float32, device=dev)  # the loss, then the pre-step tensor
 
-        def assemble():
-            return torch.cat([cams["quad"], cams["T"]]) if seperate_LR else cams["cam"]
+            def assemble():
+                return torch.cat([cams["quad"], cams["T"]]) if seperate_LR else cams["cam"]
 
-        def step() -> None:
-            leaves = list(cams.values())
-            loss = tracking_loss_fn(
-                assemble(), scene, color, depth, tsdf_volume, tsdf_bnds, bound, cam, rcfg, batch_size,
-                ignore_edge_W, ignore_edge_H, handle_dynamic, use_color, w_color_loss, generator, pix,
-                grid_vjp, shards,
-            )
-            grads = list(torch.autograd.grad(loss, leaves))
-            if shards is not None:
-                reduced = shards.all_reduce([loss.detach().reshape(1)] + grads)
-                loss, grads = reduced[0][0], reduced[1:]
-            with torch.no_grad():
-                out[1:].copy_(assemble())
-                adam_update(cams, dict(zip(cams, grads)), adam, lr_tree, lazy=adam_lazy)
-                value = loss.detach()
-                better = value < best_loss
-                best_loss.copy_(torch.where(better, value, best_loss))
-                best.copy_(torch.where(better, assemble(), best))
-                out[0].copy_(value)
+            def step() -> None:
+                leaves = list(cams.values())
+                loss = tracking_loss_fn(
+                    assemble(), scene, color, depth, tsdf_volume, tsdf_bnds, bound, cam, rcfg, batch_size,
+                    ignore_edge_W, ignore_edge_H, handle_dynamic, use_color, w_color_loss, generator, pix,
+                    grid_vjp, shards,
+                )
+                grads = list(torch.autograd.grad(loss, leaves))
+                if shards is not None:
+                    reduced = shards.all_reduce([loss.detach().reshape(1)] + grads)
+                    loss, grads = reduced[0][0], reduced[1:]
+                with torch.no_grad():
+                    out[1:].copy_(assemble())
+                    adam_update(cams, dict(zip(cams, grads)), adam, lr_tree, lazy=adam_lazy)
+                    value = loss.detach()
+                    better = value < best_loss
+                    best_loss.copy_(torch.where(better, value, best_loss))
+                    best.copy_(torch.where(better, assemble(), best))
+                    out[0].copy_(value)
 
-        graph = graphs.step_graph(step, () if replayed else (generator,), list(cams.values()), shards)
-        return cams, adam, scalars, color, depth, pix, best_loss, best, out, assemble, graph
+            graph = graphs.step_graph(step, () if replayed else (generator,), list(cams.values()), shards)
+            return cams, adam, scalars, color, depth, pix, best_loss, best, out, assemble, graph
 
-    cams, adam, scalars, color, depth, pix, best_loss, best, out, assemble, graph = graphs.program(key, make)
-    with torch.no_grad():
-        if seperate_LR:
-            cams["quad"].copy_(init[:4])
-            cams["T"].copy_(init[4:])
+        cams, adam, scalars, color, depth, pix, best_loss, best, out, assemble, graph = graphs.program(key, make)
+        with torch.no_grad():
+            if seperate_LR:
+                cams["quad"].copy_(init[:4])
+                cams["T"].copy_(init[4:])
+            else:
+                cams["cam"].copy_(init)
+            adam_reset(adam)
+            best_loss.fill_(float("inf"))
+            best.copy_(init)
+            color.copy_(color_im)
+            depth.copy_(depth_im)
+        base = [cam_lr * 0.2, cam_lr] if seperate_LR else [cam_lr]
+        if lr_final_factor < 1.0 and n_iters > 1:
+            i = torch.arange(n_iters, dtype=torch.float32)
+            half = n_iters / 2.0
+            t = torch.clamp((i - half) / max(n_iters - 1 - half, 1.0), 0.0, 1.0)
+            lr_scales = torch.pow(torch.tensor(lr_final_factor, dtype=torch.float32), t).tolist()
         else:
-            cams["cam"].copy_(init)
-        adam_reset(adam)
-        best_loss.fill_(float("inf"))
-        best.copy_(init)
-        color.copy_(color_im)
-        depth.copy_(depth_im)
-    base = [cam_lr * 0.2, cam_lr] if seperate_LR else [cam_lr]
-    if lr_final_factor < 1.0 and n_iters > 1:
-        i = torch.arange(n_iters, dtype=torch.float32)
-        half = n_iters / 2.0
-        t = torch.clamp((i - half) / max(n_iters - 1 - half, 1.0), 0.0, 1.0)
-        lr_scales = torch.pow(torch.tensor(lr_final_factor, dtype=torch.float32), t).tolist()
-    else:
-        lr_scales = [1.0] * n_iters
-    record = torch.zeros((n_iters, 8), dtype=torch.float32, device=dev)
+            lr_scales = [1.0] * n_iters
+        record = torch.zeros((n_iters, 8), dtype=torch.float32, device=dev)
     for it in range(n_iters):
         if replayed:
             pix.copy_(pixel_idx[it])
@@ -337,22 +339,24 @@ class Tracker:
         ``inside_freq``-th iteration: the scene is frozen while tracking, so
         that is the render the reference makes inside the loop.
         """
-        if idx == 0 or self.gt_camera:
-            return gt_c2w.astype(np.float32), 0.0
-        init_c2w = self.initial_pose(idx, estimate_c2w_list)
-        cam_tensor = torch.as_tensor(pose_tensor_from_matrix(init_c2w), device=self.device)
-        best, losses, _, iter_tensors = track_frame(
-            params, cam_tensor, color_im, depth_im, self.tsdf_volume,
-            self.tsdf_bnds, self.bound, self.cam, self.rcfg,
-            self.tracking_pixels, self.num_cam_iters, self.ignore_edge_W,
-            self.ignore_edge_H, self.handle_dynamic, self.use_color,
-            self.w_color_loss, self.cam_lr, self.seperate_LR,
-            self.lr_final_factor, generator, pixel_idx, self.grid_vjp, self.adam_lazy, self.shards,
-            graphs=self.graphs,
-        )
-        if visualizer is not None and idx % visualizer.freq == 0:
-            for it in range(0, self.num_cam_iters, visualizer.inside_freq):
-                visualizer.vis(idx, it, depth_im, color_im, iter_tensors[it], params, self.tsdf_volume)
-        with torch.no_grad():
-            c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()
-        return c2w.astype(np.float32), float(losses[-1])
+        with span("Tracker.track", frame=idx):
+            if idx == 0 or self.gt_camera:
+                return gt_c2w.astype(np.float32), 0.0
+            init_c2w = self.initial_pose(idx, estimate_c2w_list)
+            cam_tensor = torch.as_tensor(pose_tensor_from_matrix(init_c2w), device=self.device)
+            best, losses, _, iter_tensors = track_frame(
+                params, cam_tensor, color_im, depth_im, self.tsdf_volume,
+                self.tsdf_bnds, self.bound, self.cam, self.rcfg,
+                self.tracking_pixels, self.num_cam_iters, self.ignore_edge_W,
+                self.ignore_edge_H, self.handle_dynamic, self.use_color,
+                self.w_color_loss, self.cam_lr, self.seperate_LR,
+                self.lr_final_factor, generator, pixel_idx, self.grid_vjp, self.adam_lazy, self.shards,
+                graphs=self.graphs,
+            )
+            if visualizer is not None and idx % visualizer.freq == 0:
+                for it in range(0, self.num_cam_iters, visualizer.inside_freq):
+                    visualizer.vis(idx, it, depth_im, color_im, iter_tensors[it], params, self.tsdf_volume)
+            with span("Tracker.pose_to_host"), torch.no_grad():  # waits for the device
+                c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()
+                loss = float(losses[-1])
+            return c2w.astype(np.float32), loss

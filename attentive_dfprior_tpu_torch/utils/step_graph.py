@@ -74,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from attentive_dfprior_tpu_torch.ops.adam import AdamState, adam_init, adam_reset
+from attentive_dfprior_tpu_torch.utils.profiling import span
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves, tree_map
 
 STEP_MODES = ("graph", "eager")
@@ -162,7 +163,10 @@ class StepGraph:
     ``torch.Generator``s the step draws from. ``writes``: the tensors the
     step updates in place, whose ``_version`` each replay advances.
     ``launches``: the hand-written kernels' launches one replay makes, from
-    the capture."""
+    the capture. Spans (``utils/profiling.py``): ``StepGraph.eager``,
+    ``StepGraph.warmup``, ``StepGraph.capture`` (the agent's captures
+    after it) and ``StepGraph.replay``, around the ``replay()`` call
+    alone."""
 
     def __init__(self, owner: "StepGraphs", step: Callable[[], None], generators: Iterable[torch.Generator] = (),
                  writes: Sequence[torch.Tensor] = ()):
@@ -177,17 +181,23 @@ class StepGraph:
     def __call__(self) -> None:
         o = self.owner
         if not o.graphed:
-            self.step()
+            with span("StepGraph.eager"):
+                self.step()
             o.eager_iters += 1
             return
         if self.graph is None:
             if self.warm < WARMUP_ITERS:
-                o.on_side_stream(self.step)
+                with span("StepGraph.warmup", iteration=self.warm):
+                    o.on_side_stream(self.step)
                 self.warm += 1
                 o.eager_iters += 1
                 return
-            self._capture()
-        self.graph.replay()
+            with span("StepGraph.capture") as s:
+                self._capture()
+                if s is not None:
+                    s.attrs["captures"] = o.captures
+        with span("StepGraph.replay"):  # the host's time in cudaGraphLaunch
+            self.graph.replay()
         for k, n in self.launches.items():
             if n:
                 k.count(n)

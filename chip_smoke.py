@@ -61,8 +61,8 @@ Phases (each failure exits non-zero):
      4/256 m prior of ~196 M voxels, then 5 tracked frames of 10
      iterations x 200 rays; fails unless a replay counts the launches the
      eager cycle makes. The halo cycles (graphed and eager) are profiled
-     at the very end of the run (busy share, host launches per
-     iteration): the profiler slows what runs after it in the process;
+     at the very end of the run (kernel time summed over the cycle, host
+     launches per iteration): the profiler slows what runs after it in the process;
   4. the entry point ``attentive_dfprior_tpu_torch.run`` on
      configs/Synthetic/room_tracking.yaml as configured (loop closure on,
      each iteration a graph replay, as in every single-process path below)
@@ -82,7 +82,8 @@ Phases (each failure exits non-zero):
      eager render with the same padding, before and after 10 mapping
      iterations that write the decoders, the gap to the unpadded eager
      render printed, seconds per render graphed and eager in turns (both
-     profiled at the very end of the run: busy share, kernels a chunk); (b)
+     profiled at the very end of the run: kernel time summed, kernels a
+     chunk); (b)
      the same with ``rendering.N_importance=16`` (the resampled second
      pass through the same decoder path), same gates, and with
      ``perturb=1.0`` the graphed render ``torch.equal`` to the eager one;
@@ -203,7 +204,7 @@ Phases (each failure exits non-zero):
      eager in turns at 2 reps: its JSON line; fails on a non-finite loss,
      without K1, without peak memory, or without the graphed headline and
      the eager record; both modes' cycles profiled at the end of the run
-     (busy share of 17(a)'s median cycle);
+     (kernel time summed over the cycle, beside 17(a)'s median cycle);
      (b) ``tools/profile_mapping.py``, every row, ``full_iter_color``
      graphed and eager in turns, 2 reps: fails on a non-finite row, unless
      K1 runs in the ``halo`` rows alone and K3 in the ``pallas`` rows
@@ -1006,8 +1007,10 @@ def profile_cycles(torch, cycles, results) -> None:
 def profile_cycle(torch, cycle, cycle_s: float, label: str, iters: int) -> None:
     """One more cycle under torch.profiler, tracing the device alone (the
     host's operators, which the profile does not read, took it from about
-    two minutes to one): the device's busy share of the unprofiled cycle
-    time, the number of device kernels, the launches the host made per
+    two minutes to one): the device kernels' durations summed over the
+    cycle (kernels on two streams at once counted twice, so no busy share:
+    the benchmark's union over its traced window is one) beside the
+    unprofiled cycle time, the number of device kernels, the launches the host made per
     iteration (kernel and graph launches, copies and fills: the runtime
     calls in the trace) over the cycle's ``iters`` iterations, and the
     kernels that take the most device time. The device's events are
@@ -1031,14 +1034,14 @@ def profile_cycle(torch, cycle, cycle_s: float, label: str, iters: int) -> None:
         elif e.name() in HOST_LAUNCH_CALLS:
             host[e.name()] = host.get(e.name(), 0) + 1
     print(f"profile ({label}): {time.perf_counter() - t0:.1f} s to trace and sum the cycle")
-    busy_s = sum(ns for _, ns in by_name.values()) / 1e9
-    if busy_s <= 0:
+    kernel_s = sum(ns for _, ns in by_name.values()) / 1e9
+    if kernel_s <= 0:
         print(f"profile ({label}): the profiler recorded no device time (not measured)")
         return
     n_kernels = sum(n for n, _ in by_name.values())
     n_host = sum(host.values())
-    print(f"profile ({label}): device busy {busy_s:.4f} s of the {cycle_s:.4f} s cycle "
-          f"({100 * busy_s / cycle_s:.1f} %), {n_kernels} device kernels per cycle ({n_kernels / iters:.1f} per "
+    print(f"profile ({label}): kernel time summed over the cycle {kernel_s:.4f} s, beside the {cycle_s:.4f} s "
+          f"cycle; {n_kernels} device kernels per cycle ({n_kernels / iters:.1f} per "
           f"iteration); host launches per iteration "
           + (f"{n_host / iters:.1f} ({json.dumps(host)} in the cycle)" if n_host else "not measured (no runtime "
              "calls in the trace)"))
@@ -1048,8 +1051,8 @@ def profile_cycle(torch, cycle, cycle_s: float, label: str, iters: int) -> None:
 
 def profile_renders(torch, slam, times) -> None:
     """Phase 5's render of the last mapped frame profiled at the end of the
-    run, graphed and eager (``profile_cycle``): the device's busy share of
-    phase 5's median seconds and the kernels that take the most device time,
+    run, graphed and eager (``profile_cycle``): the kernel time summed
+    beside phase 5's median seconds and the kernels that take the most device time,
     per chunk of ``ray_batch_size`` rays."""
     from attentive_dfprior_tpu_torch.render.renderer import Renderer
     from attentive_dfprior_tpu_torch.utils.step_graph import ForwardGraphs
@@ -1073,8 +1076,9 @@ def profile_bench_cycles(torch, dev, cycle_s) -> None:
     run, as phase 3's cycles are: for each step mode a fresh scene and
     cycle (``tools/bench.py``'s builder), graphed after one warm-up cycle
     (the capture), eager at once (17(a) loaded its kernels in this
-    process), then one profiled (``profile_cycle``): the busy share of
-    17(a)'s median cycle seconds ``cycle_s`` (by mode) and the host's
+    process), then one profiled (``profile_cycle``): the kernel time
+    summed beside 17(a)'s median cycle seconds ``cycle_s`` (by mode) and
+    the host's
     launches per iteration."""
     from attentive_dfprior_tpu_torch.tools import bench
 
@@ -2894,8 +2898,7 @@ def phase_harnesses(torch, drive, paths) -> dict:
             fail(f"bench {name}: no peak device memory")
     if not out["graphed"] or "eager" not in out:
         fail(f"bench: the JSON line's headline is not graphed with an eager record beside it ({out['step_mode']})")
-    print(f"bench: est_mfu_vs_chip_fp32_peak {out['est_mfu_vs_chip_fp32_peak']:.3e} "
-          f"({out['est_model_flops_per_s'] / 1e12:.4f} TFLOP/s of {out['assumed_peak_flops'] / 1e12:.0f}); "
+    print(f"bench: est_model_flops_per_s {out['est_model_flops_per_s'] / 1e12:.4f} TFLOP/s; "
           f"{time.perf_counter() - t0:.1f} s")
 
     # (b) where a mapping iteration's milliseconds go

@@ -25,7 +25,7 @@ from attentive_dfprior_tpu.tools import eval_ate as j_eval_ate
 from attentive_dfprior_tpu.utils.logger import Logger as JLogger
 from attentive_dfprior_tpu.utils.profiling import PhaseTimer as JPhaseTimer
 from attentive_dfprior_tpu_torch.tools import eval_ate
-from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer, torch_trace
+from attentive_dfprior_tpu_torch.utils.profiling import PhaseTimer, span, torch_trace
 from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
 from test_torch_slam import REPO, setup, tiny_room_cfg  # noqa: F401 (setup is a fixture)
 
@@ -189,8 +189,21 @@ def test_torch_trace_writes_a_trace(tmp_path):
     with torch_trace(None):
         torch.ones(3).sum()
     with torch_trace(str(tmp_path)):
-        torch.ones(3).sum()
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
+        with span("Test.region", frame=7):
+            torch.ones(3).sum()
+    traces = [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    # the spans beside the trace, on its time base: the region holds the sum it ran
+    spans_file = tmp_path / traces[0].replace(".pt.trace.json", ".spans.json")
+    kineto, ours = json.load(open(tmp_path / traces[0])), json.load(open(spans_file))
+    assert ours["baseTimeNanoseconds"] == kineto.get("baseTimeNanoseconds", 0)
+    (region,) = ours["traceEvents"]
+    assert region["name"] == "Test.region" and region["args"] == {"frame": 7} and region["ph"] == "X"
+    ops = [e for e in kineto["traceEvents"] if e.get("name") == "aten::sum"]
+    for op in ops:  # the sum and the op it dispatches to
+        assert region["ts"] <= op["ts"] and op["ts"] + op["dur"] <= region["ts"] + region["dur"]
+        assert region["pid"] == op["pid"] and region["tid"] == op["tid"]
+    assert ops
 
 
 def test_frame_cache_renders_each_frame_once(monkeypatch):
