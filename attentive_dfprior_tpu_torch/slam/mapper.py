@@ -39,6 +39,7 @@ import torch
 from attentive_dfprior_tpu_torch.camera import Camera
 from attentive_dfprior_tpu_torch.models.scene import SceneConfig
 from attentive_dfprior_tpu_torch.ops.adam import AdamState, adam_update
+from attentive_dfprior_tpu_torch.ops.cuda import frustum_kernel
 from attentive_dfprior_tpu_torch.ops.pose import pose_matrix_from_tensor, pose_tensor_from_matrix
 from attentive_dfprior_tpu_torch.ops.rays import get_samples, ray_bound_intersection
 from attentive_dfprior_tpu_torch.render.renderer import RenderConfig, render_rays
@@ -505,6 +506,28 @@ class Mapper:
             spans.append(("color", hi_end + 1, num_joint_iters - 1))
         return [(st, s, e) for st, s, e in spans if e >= s]
 
+    def _frustum_masks(self, params: Any, depth_np: np.ndarray, c2w_np: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The grids' frustum masks of the frame at ``c2w_np`` with depth
+        ``depth_np``, in this agent's static buffers ({grid key: (nx, ny,
+        nz, 1) float32}), so the stage programs of every frame read the
+        same addresses. The route follows the mapper's device: on the card
+        K6 (``ops/cuda/frustum_kernel.py``) writes them straight into the
+        buffers from the depth copied into a static buffer of its own;
+        elsewhere ``get_frustum_mask`` computes them in numpy."""
+        g = self.graphs
+        shapes = [tuple(params[k].shape[:3]) for k in GRID_KEYS]
+        bound = np.asarray(self.scene_cfg.bound)
+        if self.device.type != "cuda":
+            with span("Mapper.frustum_masks", route="numpy"):
+                return {k: g.static(("frustum", k), torch.as_tensor(
+                    get_frustum_mask(c2w_np, s, bound, depth_np, self.cam)[..., None], dtype=torch.float32))
+                        for k, s in zip(GRID_KEYS, shapes)}
+        with span("Mapper.frustum_masks", route="cuda"):
+            depth = g.static("frustum_depth", torch.from_numpy(np.require(depth_np, np.float32, ["C", "W"])))
+            outs = [g.buffer(("frustum", k), (*s, 1), torch.float32) for k, s in zip(GRID_KEYS, shapes)]
+            frustum_kernel.frustum_masks(frustum_kernel.pack(c2w_np, shapes, bound, self.cam), depth, outs)
+            return dict(zip(GRID_KEYS, outs))
+
     def optimize_map(
         self,
         params: Any,
@@ -559,17 +582,7 @@ class Mapper:
 
             frustum_masks = None
             if use_frustum and cur_depth_np is not None:
-                with span("Mapper.frustum_masks"):
-                    frustum_masks = {
-                        k: torch.as_tensor(
-                            get_frustum_mask(
-                                cur_c2w_np, tuple(params[k].shape[:3]),
-                                np.asarray(self.scene_cfg.bound), cur_depth_np, self.cam,
-                            )[..., None],
-                            dtype=torch.float32, device=self.device,
-                        )
-                        for k in GRID_KEYS
-                    }
+                frustum_masks = self._frustum_masks(params, cur_depth_np, cur_c2w_np)
 
             with span("Mapper.window"):
                 for t in tree_leaves(params):
@@ -581,8 +594,6 @@ class Mapper:
                 frames_depth = g.static(("depth", F), frames_depth)
                 frames_c2w_t = g.static(("c2w", F), torch.as_tensor(np.asarray(frames_c2w), dtype=torch.float32,
                                                                     device=self.device))
-                if frustum_masks is not None:
-                    frustum_masks = {k: g.static(("frustum", k), v) for k, v in frustum_masks.items()}
                 ba_on = self.ba and not color_refine and F >= 3
                 scene_state = g.adam("scene", params)  # zeroed: a fresh state for this frame
                 if ba_on:

@@ -323,15 +323,21 @@ class StepGraphs:
         self.programs.clear()
         self._scene, self._sources = None, []
 
-    def static(self, name: Hashable, value: torch.Tensor, requires_grad: bool = False) -> torch.Tensor:
-        """The static buffer ``name`` (allocated at ``value``'s shape and
-        dtype on first use, again if they change; a leaf that requires grad
-        with ``requires_grad``, as BA's window poses) with ``value`` copied
-        in."""
+    def buffer(self, name: Hashable, shape: Sequence[int], dtype: torch.dtype,
+               requires_grad: bool = False) -> torch.Tensor:
+        """The static buffer ``name``, allocated at ``shape`` and ``dtype``
+        on first use, again if they change (a leaf that requires grad with
+        ``requires_grad``, as BA's window poses); its contents as left."""
         buf = self.buffers.get(name)
-        if buf is None or buf.shape != value.shape or buf.dtype != value.dtype:
-            buf = self.buffers[name] = torch.empty(value.shape, dtype=value.dtype, device=self.device)
+        if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+            buf = self.buffers[name] = torch.empty(tuple(shape), dtype=dtype, device=self.device)
             buf.requires_grad_(requires_grad)
+        return buf
+
+    def static(self, name: Hashable, value: torch.Tensor, requires_grad: bool = False) -> torch.Tensor:
+        """The static buffer ``name`` (``buffer``, at ``value``'s shape and
+        dtype) with ``value`` copied in."""
+        buf = self.buffer(name, value.shape, value.dtype, requires_grad)
         with torch.no_grad():
             buf.copy_(value)
         return buf

@@ -51,7 +51,14 @@ Phases (each failure exits non-zero):
      read once), its CUDA launches a call and device ms counted by the
      profiler (3), and its allocation measured (none by the kernel after its
      first call at a shape; the frame's inputs through
-     ``TSDFVolume.integrate``);
+     ``TSDFVolume.integrate``); K6, the mapper's frustum masks, at room0's
+     and ScanNet's grids on seeded frames and the rule's edges (an all-zero
+     frame, NaN / +inf pixels, a camera inside with every sample zero, one
+     facing out of the bound, a NaN in the pose): ``torch.equal`` to its
+     plain version and voxel for voxel ``get_frustum_mask`` (numpy), timed
+     by CUDA events beside the numpy masks' host ms and its bound, the card
+     route's host ms, its CUDA launches a call counted by the profiler (at
+     most 2);
   3. the room0-shape SLAM cycle (``tools/bench.py``'s replica workload,
      from its builder) under the ``halo`` grid gradient (K1) and the
      ``pallas`` one (K3), each with its iterations replayed as CUDA graphs
@@ -142,7 +149,9 @@ Phases (each failure exits non-zero):
      every 5th frame, the first map cut to 250 of its 1500 iterations:
      tracks 1-5, maps 0 and 5. Fails on a
      non-finite loss, another mapping schedule, a prior not loaded from the
-     builder's cache, no K1 or K2 launch, or unaligned ATE above 10 cm;
+     builder's cache, no K1 or K2 launch, K6 launches other than the maps
+     with frustum selection (the colour refinement has none), or unaligned
+     ATE above 10 cm;
      prints aligned ATE, seconds by part, peak device memory and the mesh's
      accuracy / completion / ratio against the synthetic GT;
  13. the loaders and tools: (a) a ScanNet-layout fixture of 3 frames at
@@ -650,6 +659,9 @@ def phase_kernels(torch, dev):
 
     # ---- K5, TSDF integration: bit-identical to its plain version ----
     rec["K5"] = kernel_k5(torch, dev)
+
+    # ---- K6, the frustum masks: bit-identical to its plain version ----
+    rec["K6"] = kernel_k6(torch, dev)
     return rec
 
 
@@ -902,6 +914,169 @@ def kernel_k5(torch, dev):
                           updated=updated, columns_kept=cols, voxels_kept=kept, voxels=nvox,
                           kernel_alloc=kernel_alloc, entry_alloc=entry_alloc)
     return rec
+
+
+K6_FRAMES = 8  # phase 2: seeded frames a configuration, beside the rule's edges
+
+
+def k6_look(eye, forward):
+    """c2w (float32) of a camera at ``eye`` looking along ``forward`` in the
+    mapper's convention (the camera looks along its -z)."""
+    f = np.asarray(forward, np.float64)
+    f = f / np.linalg.norm(f)
+    up = np.array([0.0, 0.0, 1.0]) if abs(f[2]) < 0.95 else np.array([0.0, 1.0, 0.0])
+    r = np.cross(f, up)
+    r /= np.linalg.norm(r)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([r, np.cross(r, f), -f], axis=1)
+    c2w[:3, 3] = eye
+    return c2w.astype(np.float32)
+
+
+def k6_frames(rng, cam, bound):
+    """K6's frames at one configuration: (label, c2w, depth) for
+    ``K6_FRAMES`` seeded poses inside the bound with zero-depth patches,
+    then the rule's edges: an all-zero frame, NaN and +inf pixels, a camera
+    inside the lattice with every sample zero (the distance rule), one
+    facing out of the bound, a NaN in the pose."""
+    H, W = cam.H, cam.W
+    mid = bound.mean(axis=1)
+    out = []
+    for i in range(K6_FRAMES):
+        eye = bound[:, 0] + rng.uniform(0.1, 0.9, 3) * (bound[:, 1] - bound[:, 0])
+        d = rng.standard_normal(3) * np.array([1.0, 1.0, 0.3])
+        depth = rng.uniform(0.3, 6.0, (H, W)).astype(np.float32)
+        for _ in range(3):
+            v, u = rng.integers(0, H), rng.integers(0, W)
+            depth[v: v + rng.integers(5, H // 3), u: u + rng.integers(5, W // 3)] = 0.0
+        out.append((f"seeded frame {i}", k6_look(eye, d), depth))
+    depth = rng.uniform(0.3, 6.0, (H, W)).astype(np.float32)
+    out.append(("all-zero depth", k6_look(mid, (0.2, 1.0, -0.1)), np.zeros_like(depth)))
+    odd = depth.copy()
+    odd[::7, ::5] = np.nan
+    odd[3, 11] = odd[100, 50] = np.inf
+    out.append(("NaN / +inf pixels", k6_look(mid, (-1.0, 0.2, 0.0)), odd))
+    out.append(("camera inside, every sample zero", k6_look(mid + 0.013, (0.0, 0.0, 1.0)), np.zeros_like(depth)))
+    eye = mid.copy()
+    eye[0] = bound[0, 1] - 0.1
+    out.append(("facing out of the bound", k6_look(eye, (1.0, 0.05, 0.02)), depth))
+    nan_pose = k6_look(mid, (1.0, 0.0, 0.0))
+    nan_pose[0, 1] = np.nan
+    out.append(("NaN in the pose", nan_pose, depth))
+    return out
+
+
+def kernel_k6(torch, dev):
+    """K6 (the mapper's frustum masks) at room0's and ScanNet's grids, on
+    the same frames: bit for bit its plain version (``frustum_masks_plain``)
+    and voxel for voxel ``get_frustum_mask`` (numpy, the CPU route), every
+    voxel of every grid buffer written; timed by CUDA events (median of
+    20) beside the numpy masks' host ms and its bound, the card route's
+    host ms as the mapper runs it (the depth to the card, the packing, the
+    launch), its CUDA launches a call counted by the profiler (2)."""
+    from attentive_dfprior_tpu_torch.camera import Camera
+    from attentive_dfprior_tpu_torch.config import default_config_path, load_config
+    from attentive_dfprior_tpu_torch.models.scene import grid_shape, load_bound
+    from attentive_dfprior_tpu_torch.ops.cuda import frustum_kernel as K6
+    from attentive_dfprior_tpu_torch.slam.mapper import get_frustum_mask
+    from attentive_dfprior_tpu_torch.tools.profile_scatter import pieces
+
+    rec = {}
+    for label, path in (("room0", REPLICA_ROOM0), ("scannet", SCANNET_SCENE)):
+        cfg = load_config(os.path.join(REPO, path), default_config_path())
+        cam, bound = Camera.from_config(cfg), load_bound(cfg)
+        shapes = [grid_shape(bound, cfg["grid_len"][k]) for k in ("low", "high", "color")]
+        kept = []
+        for name, c2w, depth in k6_frames(np.random.default_rng(19), cam, bound):
+            packed = K6.pack(c2w, shapes, bound, cam)
+            outs = [torch.full(s, 7.0, device=dev) for s in shapes]  # not a mask value: every voxel must be written
+            K6.frustum_masks(packed, torch.as_tensor(depth, device=dev), outs)
+            plain = K6.frustum_masks_plain(packed, torch.from_numpy(depth))
+            for s, got, want in zip(shapes, outs, plain):
+                got = got.cpu()
+                if not torch.equal(got, want):
+                    diff = (got != want).reshape(-1)
+                    where = diff.nonzero()[:3].reshape(-1).tolist()
+                    fail(f"K6 {label}, {name}: {int(diff.sum())} of {diff.numel()} voxels of grid {s} differ from "
+                         f"frustum_masks_plain, first at flat {where}: K6 {got.reshape(-1)[where].tolist()} plain "
+                         f"{want.reshape(-1)[where].tolist()}")
+                ref = get_frustum_mask(c2w, s, bound, depth, cam)
+                n = int((got.numpy().astype(bool) != ref).sum())
+                if n:
+                    fail(f"K6 {label}, {name}: {n} of {ref.size} voxels of grid {s} differ from get_frustum_mask")
+            kept.append(f"{name} {100 * float(outs[1].mean()):.2f} %")
+        print(f"K6 {label}: grids {shapes} ({len(packed.groups)} lattices); {len(kept)} frames, each torch.equal to "
+              f"frustum_masks_plain and voxel for voxel get_frustum_mask; high grid kept: " + ", ".join(kept),
+              flush=True)
+
+        # timed at a seeded frame
+        _, c2w, depth = k6_frames(np.random.default_rng(20), cam, bound)[0]
+        packed = K6.pack(c2w, shapes, bound, cam)
+        d = torch.as_tensor(depth, device=dev)
+        outs = [torch.empty(s, device=dev) for s in shapes]
+        call = lambda: K6.frustum_masks(packed, d, outs)  # noqa: E731
+        issued_ms = time_ms(torch, call)  # the wrapper's host work is longer than the kernel: this reads the host
+        queued = []  # the calls queued behind a sleep, so the events read the device alone
+        for _ in range(20):
+            torch.cuda._sleep(2_000_000)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                call()
+            end.record()
+            end.synchronize()
+            queued.append(start.elapsed_time(end) / 10)
+        ms = float(np.median(queued))
+        prof = pieces(call)
+        host = []  # the mapper's card route on the host clock, as the Mapper.frustum_masks span reads it
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d.copy_(torch.from_numpy(depth))
+            K6.frustum_masks(K6.pack(c2w, shapes, bound, cam), d, outs)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        numpy_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for s in shapes:
+                get_frustum_mask(c2w, s, bound, depth, cam)
+            numpy_ms.append((time.perf_counter() - t0) * 1e3)
+        points = sum(int(np.prod(s)) for s in shapes)
+        computed = sum(int(np.prod(packed.dims[i])) for i in range(len(packed.groups)))
+        nbytes = depth.nbytes + 4 * points  # the frame read once, every grid's mask written
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        print(f"K6 {label}: kernel {ms:.4f} ms (CUDA events around 10 calls queued behind a sleep, median of 20; "
+              f"{issued_ms:.4f} ms a call as the host issues them), device {prof['device_ms_per_call']:.4f} ms "
+              f"in {prof['kernels_per_call']:.1f} CUDA launches a call (" + "; ".join(
+                  f"{c:.1f} x {t:.4f} ms {n[:40]}" for n, (c, t) in prof["pieces"].items()) + f"); {points} lattice "
+              f"points written, {computed} computed; bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.2f} MB at "
+              f"3.35 TB/s), {100 * bound_ms / ms:.1f} % of it; the card route on the host (depth to the card, "
+              f"packing, launch) {float(np.median(host)):.3f} ms (median of 20); numpy get_frustum_mask for the three "
+              f"grids {float(np.median(numpy_ms)):.1f} ms host (median of 5, {np.median(numpy_ms) / ms:.0f}x)",
+              flush=True)
+        if prof["kernels_per_call"] > K6.LAUNCHES_PER_CALL:  # the profiler can drop a launch of a few us, never add one
+            fail(f"K6 made {prof['kernels_per_call']} CUDA launches a call at {label} "
+                 f"(at most {K6.LAUNCHES_PER_CALL})")
+        rec[label] = dict(ms=ms, issued_ms=issued_ms, device_ms=prof["device_ms_per_call"],
+                          cuda_launches=prof["kernels_per_call"],
+                          plain_ms=float(np.median(numpy_ms)), route_host_ms=float(np.median(host)),
+                          bound_ms=bound_ms, points=points, computed=computed)
+    return rec
+
+
+def check_mask_launches(paths, name: str, out_dir: str, slam) -> None:
+    """Fail unless the path launched K6 once per map with frustum selection
+    (the colour refinement maps without masks)."""
+    records = [json.loads(ln) for ln in open(os.path.join(out_dir, "metrics.jsonl"))]
+    maps = [r for r in records if r["event"] == "map"]
+    refine = [r for r in maps if not r["first"] and r["idx"] == slam.n_img - 1 and slam.color_refine]
+    masked = (len(maps) - len(refine)) if slam.mapper.frustum_feature_selection else 0
+    got = paths[name]["frustum_mask"]
+    print(f"{name}: K6 (frustum masks) launched {got} times for {masked} maps with frustum selection "
+          f"({len(maps)} mapped frames, {len(refine)} colour refinement)")
+    if got != masked:
+        fail(f"{name}: K6 launched {got} times for {masked} maps with frustum selection")
 
 
 ROOM0_VARIANTS = (("halo", "graph"), ("halo", "eager"), ("pallas", "graph"), ("pallas", "eager"))
@@ -3105,6 +3280,7 @@ def main() -> None:
         if paths["replica"]["halo_fold"] <= 0 or paths["replica"]["decoder_mlp"] <= 0:
             fail(f"the Replica entry point launched K1 (halo fold) {paths['replica']['halo_fold']} times and K2 "
                  f"(decoder MLP) {paths['replica']['decoder_mlp']} times (expected both > 0)")
+        check_mask_launches(paths, "replica", replica["out_dir"], replica["slam"])
         done(12)
     if 13 in phases:
         phase_scannet_read(configs_dir)
@@ -3149,7 +3325,7 @@ def main() -> None:
         def launches(name):
             return sum(p[name] for p in paths.values())
 
-        k1, k2, k3, k4, k5 = kern["K1"], kern["K2"], kern["K3"], kern["K4"], kern["K5"]
+        k1, k2, k3, k4, k5, k6 = kern["K1"], kern["K2"], kern["K3"], kern["K4"], kern["K5"], kern["K6"]
         line = {"kernels": [
             {"name": "halo_fold", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/halo_fold.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/halo_fold_kernel.py:87",
@@ -3182,6 +3358,15 @@ def main() -> None:
              "voxels_updated": k5["room0"]["updated"], "voxels_kept": k5["room0"]["voxels_kept"],
              "scannet_ms": k5["scannet"]["ms"], "scannet_plain_ms": k5["scannet"]["plain_ms"],
              "scannet_bound_ms": k5["scannet"]["bound_ms"], "scannet_device_ms": k5["scannet"]["device_ms"]},
+            {"name": "frustum_mask", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/frustum_mask.cu",
+             "replaces": "attentive_dfprior_tpu_torch/slam/mapper.py:get_frustum_mask (numpy, host)",
+             "launches": launches("frustum_mask"), "max_abs_err": 0.0,
+             "ms": k6["room0"]["ms"], "plain_ms": k6["room0"]["plain_ms"], "bound_ms": k6["room0"]["bound_ms"],
+             "bound_by": "bytes", "library_ms": None, "device_ms": k6["room0"]["device_ms"],
+             "cuda_launches_per_call": k6["room0"]["cuda_launches"], "route_host_ms": k6["room0"]["route_host_ms"],
+             "scannet_ms": k6["scannet"]["ms"], "scannet_plain_ms": k6["scannet"]["plain_ms"],
+             "scannet_bound_ms": k6["scannet"]["bound_ms"], "scannet_device_ms": k6["scannet"]["device_ms"],
+             "scannet_route_host_ms": k6["scannet"]["route_host_ms"]},
         ]}
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")

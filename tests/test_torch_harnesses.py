@@ -219,7 +219,8 @@ def test_profile_rows_finite_and_named_as_jax(monkeypatch):
         assert r["finite"], name
         assert r["ms_per_iter"] > 0 and len(r["rep_ms"]) == 1
         assert r["device_ms_per_iter"] is None  # no profiler pass on the CPU
-        assert r["launches_per_iter"] == {"halo_fold": 0, "decoder_mlp": 0, "cell_stencil": 0, "cell_scatter": 0}
+        assert r["launches_per_iter"] == {"halo_fold": 0, "decoder_mlp": 0, "cell_stencil": 0, "cell_scatter": 0,
+                                           "frustum_mask": 0}
     only = profile_mapping.profile("cpu", iters=1, reps=1, only="cellgrad", workload="tiny", rays=40)
     assert sorted(only) == sorted(n for n in rows if "cellgrad" in n)
 
