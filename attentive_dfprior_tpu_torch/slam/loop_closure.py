@@ -21,6 +21,16 @@ Frame 0, whose pose is ground truth by construction (ref:
 src/Tracker.py:186-188), is never moved. Re-localization reads the scene
 detached, so it launches neither K1 nor K2.
 
+Spans (``utils/profiling.py``): ``LoopCloser.final_refine`` (start, n,
+frames re-localized) and ``LoopCloser.relax`` (idx, keyframes) hold one
+``LoopCloser.relocalize`` (frame, iters) an entry or keyframe, which holds
+``LoopCloser.frame_in`` (the frame read and copied to the device), the
+tracker's ``Tracker.inputs`` and ``StepGraph.replay`` x iters, and
+``LoopCloser.pose_to_host`` (the wait for the pose and its clamp to the
+trust region; the write-back follows it). Counters: ``refined`` and ``skipped`` (the final refine's
+entries re-localized, and those left as they were for a non-finite pose),
+``relocalizations`` (both mechanisms) and ``relaxations``.
+
 Under ray-axis data parallelism re-localization runs ``track_frame`` on a
 dp group: the final refine on the tracker's, the relaxation on the group
 its caller names (the mapper's in the async modes, which relax on the
@@ -33,7 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +56,7 @@ from attentive_dfprior_tpu_torch.ops.pose import (
 )
 from attentive_dfprior_tpu_torch.slam.keyframes import keyframe_overlap_scores
 from attentive_dfprior_tpu_torch.slam.tracker import track_frame
+from attentive_dfprior_tpu_torch.utils.profiling import span
 
 
 def propagate_corrections(
@@ -128,8 +139,16 @@ class LoopCloser:
         self._log = log_fn or (lambda rec: None)
         self._last_relax = -(10**9)
         self._rng = np.random.default_rng(1234)
+        self.refined = self.skipped = self.relocalizations = self.relaxations = 0
 
     # ------------------------------------------------------------------
+
+    def _frame_in(self, color, depth):
+        """A frame's colour and depth as float32 tensors on the tracker's
+        device (copies from the host, or the tensors themselves)."""
+        dev = self.tracker.device
+        return (torch.as_tensor(color, dtype=torch.float32, device=dev),
+                torch.as_tensor(depth, dtype=torch.float32, device=dev))
 
     def _relocalize(
         self,
@@ -142,18 +161,21 @@ class LoopCloser:
         pixel_idx: Optional[torch.Tensor] = None,
         shards=None,
         graphs=None,
+        trust: Optional[Tuple[float, float]] = None,
     ):
         """One frozen-map re-localization from ``init_c2w`` on ``shards``
         (default: the tracker's dp group), its iteration replayed from
         ``graphs`` (the calling agent's ``StepGraphs``; default: the
-        tracker's); returns (c2w (4, 4) float32, per-iteration losses)."""
+        tracker's); returns (c2w (4, 4) float32, per-iteration losses).
+        ``trust``: (metres, radians), the trust region the pose is clamped
+        to about ``init_c2w`` (``clamp_pose_update``); None returns it as
+        tracked."""
         t = self.tracker
-        dev = t.device
-        cam_tensor = torch.as_tensor(pose_tensor_from_matrix(init_c2w), device=dev)
+        self.relocalizations += 1
+        cam_tensor = torch.as_tensor(pose_tensor_from_matrix(init_c2w), device=t.device)
+        color, depth = self._frame_in(color, depth)
         best, losses, _, _ = track_frame(
-            params, cam_tensor,
-            torch.as_tensor(color, dtype=torch.float32, device=dev),
-            torch.as_tensor(depth, dtype=torch.float32, device=dev),
+            params, cam_tensor, color, depth,
             self.tsdf_volume, self.tsdf_bnds, self.bound, self.cam, self.rcfg,
             t.tracking_pixels, int(n_iters), t.ignore_edge_W, t.ignore_edge_H,
             t.handle_dynamic, t.use_color, t.w_color_loss,
@@ -161,9 +183,11 @@ class LoopCloser:
             t.seperate_LR, t.lr_final_factor, generator, pixel_idx, t.grid_vjp, t.adam_lazy,
             t.shards if shards is None else shards, graphs=t.graphs if graphs is None else graphs,
         )
-        with torch.no_grad():
-            c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy()
-        return c2w.astype(np.float32), losses
+        with span("LoopCloser.pose_to_host"), torch.no_grad():  # waits for the device
+            c2w = homogenize(pose_matrix_from_tensor(best)).cpu().numpy().astype(np.float32)
+            if trust is not None:
+                c2w = clamp_pose_update(init_c2w, c2w, *trust)
+        return c2w, losses
 
     # ------------------------------------------------------------------
 
@@ -223,16 +247,21 @@ class LoopCloser:
         n_it = int(self.kf_iters) if self.kf_iters is not None else self.tracker.num_cam_iters
         max_rot = float(np.deg2rad(self.max_rot_deg))
         moved = 0
-        for slot in range(K):
-            if self.keyframes.frame_idx[slot] == 0:
-                continue  # ground truth by construction
-            ref, _ = self._relocalize(
-                params, self.keyframes.color[slot], self.keyframes.depth[slot], old_poses[slot], n_it,
-                generator, None if pixel_idx is None else pixel_idx[slot], shards, graphs,
-            )
-            new_poses[slot] = clamp_pose_update(old_poses[slot], ref, self.max_dt, max_rot)
-            if not np.allclose(new_poses[slot], old_poses[slot]):
-                moved += 1
+        self.relaxations += 1
+        with span("LoopCloser.relax", idx=int(idx), keyframes=K):
+            for slot in range(K):
+                frame = int(self.keyframes.frame_idx[slot])
+                if frame == 0:
+                    continue  # ground truth by construction
+                with span("LoopCloser.relocalize", frame=frame, iters=n_it):
+                    with span("LoopCloser.frame_in"):
+                        color, depth = self._frame_in(self.keyframes.color[slot], self.keyframes.depth[slot])
+                    new_poses[slot], _ = self._relocalize(
+                        params, color, depth, old_poses[slot], n_it, generator,
+                        None if pixel_idx is None else pixel_idx[slot], shards, graphs, (self.max_dt, max_rot),
+                    )
+                if not np.allclose(new_poses[slot], old_poses[slot]):
+                    moved += 1
         with lock:
             for slot in range(K):
                 self.keyframes.update_pose(slot, new_poses[slot])
@@ -272,17 +301,25 @@ class LoopCloser:
         n_it = int(self.refine_iters) if self.refine_iters is not None else self.tracker.num_cam_iters
         max_rot = float(np.deg2rad(self.refine_max_rot_deg))
         moved_cm = []
-        for t in range(max(start_idx, 1), n):
-            _, color, depth, _ = dataset[t]
-            old = estimate_c2w_list[t].copy()
-            if not np.isfinite(old).all():
-                continue
-            ref, _ = self._relocalize(
-                params, color, depth, old, n_it, generator, None if pixel_idx is None else pixel_idx[t]
-            )
-            new = clamp_pose_update(old, ref, self.refine_max_dt, max_rot)
-            estimate_c2w_list[t] = new
-            moved_cm.append(float(np.linalg.norm(new[:3, 3] - old[:3, 3])) * 100)
+        with span("LoopCloser.final_refine", start=int(start_idx), n=int(n)) as rec:
+            for t in range(max(start_idx, 1), n):
+                old = estimate_c2w_list[t].copy()
+                if not np.isfinite(old).all():
+                    self.skipped += 1
+                    continue
+                with span("LoopCloser.relocalize", frame=t, iters=n_it):
+                    with span("LoopCloser.frame_in"):
+                        _, color, depth, _ = dataset[t]
+                        color, depth = self._frame_in(color, depth)
+                    new, _ = self._relocalize(
+                        params, color, depth, old, n_it, generator, None if pixel_idx is None else pixel_idx[t],
+                        trust=(self.refine_max_dt, max_rot),
+                    )
+                estimate_c2w_list[t] = new
+                self.refined += 1
+                moved_cm.append(float(np.linalg.norm(new[:3, 3] - old[:3, 3])) * 100)
+            if rec is not None:
+                rec.attrs["frames"] = len(moved_cm)
         self._log(
             {
                 "event": "loop_final_refine",
