@@ -110,23 +110,25 @@ class CudaKernel:
 def port_kernels() -> List[CudaKernel]:
     """Every hand-written kernel of the port: K1 (halo fold), K2 (decoder
     MLP), K3 (cell stencil), K4 (the ordered cell scatter), K5 (TSDF
-    integration), K6 (the mapper's frustum masks)."""
+    integration), K6 (the mapper's frustum masks), K7 (the trilinear
+    lookup)."""
     from attentive_dfprior_tpu_torch.ops.cuda import (
         cell_scatter_kernel,
         decoder_kernel,
         frustum_kernel,
         halo_fold_kernel,
         stencil_kernel,
+        trilinear_kernel,
         tsdf_kernel,
     )
 
     return [halo_fold_kernel.KERNEL, decoder_kernel.KERNEL, stencil_kernel.KERNEL, cell_scatter_kernel.KERNEL,
-            tsdf_kernel.KERNEL, frustum_kernel.KERNEL]
+            tsdf_kernel.KERNEL, frustum_kernel.KERNEL, trilinear_kernel.KERNEL]
 
 
 def step_kernels() -> List[CudaKernel]:
     """The kernels a mapping or tracking step, a map and a render can launch
-    (K1-K4, K6): the launches the harnesses (``tools/bench.py``,
+    (K1-K4, K6, K7): the launches the harnesses (``tools/bench.py``,
     ``tools/profile_mapping.py``) report a cycle or an iteration. K5 runs
     in the prior's fusion alone, before any step. This is the one place
     that filters ``port_kernels()``:

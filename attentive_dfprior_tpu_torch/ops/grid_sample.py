@@ -6,8 +6,11 @@ coordinate in [-1, 1] is unnormalized as (p+1)/2*(n-1), clamped to
 [0, n-1] and blended between the 8 neighbours: z, then y, then x. On the
 CPU the forward is bit-identical to the JAX package's ``trilinear_sample``.
 
-Every sampler has the same forward; they differ in how the grid gradient
-is formed. ``sample_feature_grid(..., impl=)`` selects one by name (the JAX
+Every sampler has the same forward, ``trilinear_sample``'s values: on the
+card K7, the trilinear lookup (``ops/cuda/trilinear_kernel.py``), bit for
+bit, one launch a grid and one for the fused pair; on the CPU
+``trilinear_sample`` itself. They differ in how the grid gradient is
+formed. ``sample_feature_grid(..., impl=)`` selects one by name (the JAX
 package reads ``DFPRIOR_TRILINEAR_VJP`` instead):
 
   - ``halo`` (default): cell scatter + K1, the halo fold
@@ -49,6 +52,7 @@ import torch
 from attentive_dfprior_tpu_torch.ops.cuda.cell_scatter_kernel import cell_scatter_sum
 from attentive_dfprior_tpu_torch.ops.cuda.halo_fold_kernel import cell_fold_halo, cell_fold_plain
 from attentive_dfprior_tpu_torch.ops.cuda.stencil_kernel import cell_stencil
+from attentive_dfprior_tpu_torch.ops.cuda.trilinear_kernel import trilinear_gather, trilinear_gather_pair
 from attentive_dfprior_tpu_torch.utils.device import device_constant
 
 GRID_VJPS = ("halo", "bitfold", "cellstencil", "xla", "sorted", "pallas")
@@ -256,14 +260,15 @@ def _sorted_grid_grad(grid_shape, p_norm, ct):
 
 
 def _vjp_sampler(grid_grad: Callable) -> type:
-    """A ``torch.autograd.Function``: trilinear_sample forward, point
-    gradient by autodiff of the gathers, grid gradient by ``grid_grad``."""
+    """A ``torch.autograd.Function``: trilinear_sample's forward (K7 on the
+    card), point gradient by autodiff of the gathers, grid gradient by
+    ``grid_grad``."""
 
     class Sampler(torch.autograd.Function):
         @staticmethod
         def forward(ctx, grid, p_norm):
             ctx.save_for_backward(grid, p_norm)
-            return trilinear_sample(grid, p_norm)
+            return trilinear_gather(grid, p_norm)
 
         @staticmethod
         def backward(ctx, g):
@@ -337,7 +342,7 @@ class _TrilinearPair(torch.autograd.Function):
     def forward(ctx, grid_a, grid_b, p_norm, impl):
         ctx.save_for_backward(grid_a, grid_b, p_norm)
         ctx.impl = impl
-        return trilinear_sample(grid_a, p_norm), trilinear_sample(grid_b, p_norm)
+        return trilinear_gather_pair(grid_a, grid_b, p_norm)
 
     @staticmethod
     def backward(ctx, g_a, g_b):

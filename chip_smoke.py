@@ -58,7 +58,16 @@ Phases (each failure exits non-zero):
      plain version and voxel for voxel ``get_frustum_mask`` (numpy), timed
      by CUDA events beside the numpy masks' host ms and its bound, the card
      route's host ms, its CUDA launches a call counted by the profiler (at
-     most 2);
+     most 2); K7, the trilinear lookup, ``torch.equal`` to
+     ``trilinear_sample``, single and pair, at room0's three grids and
+     ScanNet's high grid, at 9,600, 48,000, 240,000 and 480,000 seeded
+     points in ray order with border, node and outside points among them;
+     one render chunk (10,000 rays, K2 on) and one colour-stage mapping
+     iteration through the production path ``torch.equal`` to the same with
+     the samplers' forward patched back to ``trilinear_sample`` (this
+     script's patch; the port has no switch), with K7's launches on each;
+     timed beside its bound (points read, features written), the plain
+     function and one ``F.grid_sample`` (5-D, border, align_corners);
   3. the room0-shape SLAM cycle (``tools/bench.py``'s replica workload,
      from its builder) under the ``halo`` grid gradient (K1) and the
      ``pallas`` one (K3), each with its iterations replayed as CUDA graphs
@@ -662,6 +671,9 @@ def phase_kernels(torch, dev):
 
     # ---- K6, the frustum masks: bit-identical to its plain version ----
     rec["K6"] = kernel_k6(torch, dev)
+
+    # ---- K7, the trilinear lookup: bit-identical to trilinear_sample ----
+    rec["K7"] = kernel_k7(torch, dev)
     return rec
 
 
@@ -1062,6 +1074,180 @@ def kernel_k6(torch, dev):
                           cuda_launches=prof["kernels_per_call"],
                           plain_ms=float(np.median(numpy_ms)), route_host_ms=float(np.median(host)),
                           bound_ms=bound_ms, points=points, computed=computed)
+    return rec
+
+
+# K7's grids (nx, ny, nz, C): room0's low and high (= colour) grids, ScanNet's high grid
+K7_GRIDS = {"room0 low": (37, 28, 22, 32), "room0 high": (74, 56, 44, 32), "scannet high": (82, 86, 48, 32)}
+# points a lookup: a tracking iteration (200 rays), a room0 mapping iteration (1000 rays),
+# a ScanNet one (5000 rays), a render chunk (10,000 rays); 48 samples a ray
+K7_POINTS = (9_600, 48_000, 240_000, 480_000)
+
+
+def k7_points(torch, g, dev, n: int):
+    """``n`` normalized points in ray order (48 samples a ray, as the render
+    and the mapper lay them out): seeded rays from inside the grid that
+    leave [-1, 1]^3 (clamped to the border), with points set on a border
+    plane (every 97th and 98th), on the grid's centre node (every 89th) and
+    on a corner node (every 91st), and scaled far outside (every 83rd)."""
+    rays = -(-n // 48)
+    o = torch.rand((rays, 1, 3), generator=g, device=dev) * 1.6 - 0.8
+    d = torch.randn((rays, 1, 3), generator=g, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.linspace(0.02, 1.9, 48, device=dev)[None, :, None]
+    p = (o + t * d).reshape(-1, 3)[:n].contiguous()
+    p[::97, 0] = 1.0
+    p[1::98, 1] = -1.0
+    p[2::89] = 0.0
+    p[3::91] = torch.tensor([-1.0, 1.0, -1.0], device=dev)
+    p[4::83] *= 3.0
+    return p
+
+
+class PlainLookup:
+    """The samplers' forward patched back to ``trilinear_sample`` (the
+    forward before K7) for this script's comparisons; the port has no
+    switch."""
+
+    def __enter__(self):
+        from attentive_dfprior_tpu_torch.ops import grid_sample as gs
+
+        self.gs, self.saved = gs, (gs.trilinear_gather, gs.trilinear_gather_pair)
+        gs.trilinear_gather = gs.trilinear_sample
+        gs.trilinear_gather_pair = lambda a, b, p: (gs.trilinear_sample(a, p), gs.trilinear_sample(b, p))
+        return self
+
+    def __exit__(self, *exc):
+        self.gs.trilinear_gather, self.gs.trilinear_gather_pair = self.saved
+
+
+def k7_paths(torch, dev):
+    """One render chunk (10,000 rays, K2 on) and one colour-stage mapping
+    iteration (1000 rays, eager) on room0's scene (``tools/bench.py``'s
+    replica workload), each through the production path and with the plain
+    forward patched in: their outputs ``torch.equal``; K7's launches on
+    each. Returns {path: (launches with K7, launches plain)}."""
+    from attentive_dfprior_tpu_torch.models.scene import init_scene
+    from attentive_dfprior_tpu_torch.ops.adam import adam_init
+    from attentive_dfprior_tpu_torch.ops.cuda import trilinear_kernel as K7
+    from attentive_dfprior_tpu_torch.render.renderer import render_rays
+    from attentive_dfprior_tpu_torch.slam.mapper import StageLRs, mapping_stage
+    from attentive_dfprior_tpu_torch.tools import bench
+    from attentive_dfprior_tpu_torch.utils.tree import tree_leaves
+
+    wl = bench.build_workload("replica", dev)
+    g = torch.Generator(device=dev).manual_seed(71)
+    rays = 10_000
+    ro = wl.c2ws[0, :3, 3].expand(rays, 3).contiguous()
+    rd = torch.randn((rays, 3), generator=g, device=dev)
+    gd = torch.rand((rays,), generator=g, device=dev) * 3.5 + 0.5
+    lrs = StageLRs(decoders=5e-3, mlp=5e-3, low=5e-3, high=5e-3, color=5e-3)
+    pixs = bench.WORKLOADS["replica"]["pixels"] // wl.colors.shape[0]
+
+    def render():
+        scene = init_scene(torch.Generator().manual_seed(0), wl.scene_cfg, device=dev)
+        with torch.no_grad():
+            return render_rays(scene, ro, rd, gd, wl.tsdf, wl.bound, wl.bound, "color", wl.rcfg, fused=True)
+
+    def map_iter():
+        scene = init_scene(torch.Generator().manual_seed(0), wl.scene_cfg, device=dev)
+        for t in tree_leaves(scene):
+            t.requires_grad_(True)
+        loss = mapping_stage(scene, adam_init(scene), wl.colors, wl.depths, wl.c2ws, None, wl.tsdf, wl.bound,
+                             wl.bound, 1, [0.0], lrs, "color", pixs, wl.cam, wl.rcfg, (False, False), 0.2,
+                             generator=torch.Generator(device=dev).manual_seed(2))
+        return [loss] + [t.detach() for t in tree_leaves(scene)]
+
+    counts = {}
+    for name, fn in (("render chunk", render), ("colour mapping iteration", map_iter)):
+        before = K7.KERNEL.launches
+        got = fn()
+        torch.cuda.synchronize()
+        with_k7 = K7.KERNEL.launches - before
+        with PlainLookup():
+            before = K7.KERNEL.launches
+            want = fn()
+            torch.cuda.synchronize()
+            plain = K7.KERNEL.launches - before
+        equal = [torch.equal(a, b) for a, b in zip(got, want)]
+        print(f"K7 {name} through the production path: {sum(equal)} of {len(equal)} outputs torch.equal to the "
+              f"plain forward's; K7 launches {with_k7} (plain forward: {plain})", flush=True)
+        if not all(equal):
+            fail(f"K7: the {name} differs from the same with the plain forward")
+        if with_k7 <= 0 or plain != 0:
+            fail(f"K7: the {name} launched K7 {with_k7} times (plain forward: {plain}); expected > 0 (0)")
+        counts[name] = (with_k7, plain)
+    return counts
+
+
+def kernel_k7(torch, dev):
+    """K7 bit for bit against ``trilinear_sample`` at the cells' grids and
+    points, single and pair; the production paths (``k7_paths``); timings
+    at the main path's shapes beside the bound, the plain function and one
+    ``F.grid_sample``."""
+    import torch.nn.functional as F
+
+    from attentive_dfprior_tpu_torch.ops import grid_sample as gs
+    from attentive_dfprior_tpu_torch.ops.cuda import trilinear_kernel as K7
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    rec = {"paths": k7_paths(torch, dev)}
+    for label, shape in K7_GRIDS.items():
+        a = torch.randn(shape, generator=g, device=dev)
+        b = torch.randn(shape, generator=g, device=dev)
+        for n in K7_POINTS:
+            p = k7_points(torch, g, dev, n)
+            ref_a, ref_b = gs.trilinear_sample(a, p), gs.trilinear_sample(b, p)
+            single = K7.trilinear_gather(a, p)
+            pa, pb = K7.trilinear_gather_pair(a, b, p)
+            torch.cuda.synchronize()
+            for what, out, ref in (("single", single, ref_a), ("pair, first", pa, ref_a), ("pair, second", pb, ref_b)):
+                if not torch.equal(out, ref):
+                    fail(f"K7 {what} differs from trilinear_sample at {label} {shape}, N = {n}: "
+                         f"{int((out != ref).sum())} of {out.numel()} values, max abs err "
+                         f"{float((out - ref).abs().max()):.3e}")
+        print(f"K7 {label} {shape}: single and pair torch.equal to trilinear_sample at N = "
+              f"{', '.join(str(n) for n in K7_POINTS)}", flush=True)
+
+    # timings: (label, grid, points, grids a launch)
+    for label, grid, n, pair in (("render low", "room0 low", 480_000, False),
+                                 ("render high+colour", "room0 high", 480_000, True),
+                                 ("render high", "room0 high", 480_000, False),
+                                 ("map high+colour", "room0 high", 48_000, True),
+                                 ("track high+colour", "room0 high", 9_600, True),
+                                 ("scannet high+colour", "scannet high", 240_000, True)):
+        shape = K7_GRIDS[grid]
+        a = torch.randn(shape, generator=g, device=dev)
+        b = torch.randn(shape, generator=g, device=dev)
+        p = k7_points(torch, g, dev, n)
+        if pair:
+            ms = time_ms(torch, lambda: K7.trilinear_gather_pair(a, b, p))
+            plain_ms = time_ms(torch, lambda: (gs.trilinear_sample(a, p), gs.trilinear_sample(b, p)), reps=5)
+        else:
+            ms = time_ms(torch, lambda: K7.trilinear_gather(a, p))
+            plain_ms = time_ms(torch, lambda: gs.trilinear_sample(a, p), reps=5)
+        grids = 2 if pair else 1
+        nbytes = n * 3 * 4 + n * shape[3] * 4 * grids  # benchmark/metrics/k7_roofline.py's least bytes
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        line = (f"K7 {label} {shape} at N = {n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                f"({plain_ms / ms:.1f}x); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+                f"{100 * bound_ms / ms:.1f} % of it; {nbytes / ms / 1e9:.2f} TB/s of least bytes")
+        entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, points=n, grids=grids)
+        if label == "render high":
+            # the library yardstick: one 5-D F.grid_sample (channels first, x along W)
+            vol = a.permute(3, 2, 1, 0).contiguous()[None]
+            coords = p.view(1, 1, 1, n, 3)
+
+            def library():
+                return F.grid_sample(vol, coords, mode="bilinear", padding_mode="border", align_corners=True)
+
+            lib_ms = time_ms(torch, library)
+            out = library()[0, :, 0, 0, :].t()
+            err = float((out - K7.trilinear_gather(a, p)).abs().max())
+            line += f"; library (F.grid_sample, 5-D, border, align_corners) {lib_ms:.4f} ms, max abs err vs K7 {err:.3e}"
+            entry.update(library_ms=lib_ms, library_err=err)
+        print(line, flush=True)
+        rec[label] = entry
     return rec
 
 
@@ -3224,18 +3410,18 @@ def main() -> None:
     strict_entry = None
     if 4 in phases:
         slam, strict_entry = drive("entry", phase_entry, torch, dev)
-        if min(paths["entry"][k] for k in ("halo_fold", "decoder_mlp", "cell_scatter")) <= 0:
+        if min(paths["entry"][k] for k in ("halo_fold", "decoder_mlp", "cell_scatter", "trilinear_gather")) <= 0:
             fail(f"the entry point launched K1 (halo fold) {paths['entry']['halo_fold']} times, K2 (decoder "
-                 f"MLP) {paths['entry']['decoder_mlp']} times and K4 (cell scatter) {paths['entry']['cell_scatter']} "
-                 f"times (expected each > 0)")
+                 f"MLP) {paths['entry']['decoder_mlp']} times, K4 (cell scatter) {paths['entry']['cell_scatter']} "
+                 f"times and K7 (trilinear lookup) {paths['entry']['trilinear_gather']} times (expected each > 0)")
         # the run and its resume each fuse the prior on the fly
         check_fusion_launches(paths, "entry", 2 * fused_frames(slam))
         phase_prior_equal(torch, dev, slam)
         done(4)
         if 5 in phases:
             render_times = drive("render", phase_render, torch, dev, slam)
-            if paths["render"]["decoder_mlp"] <= 0:
-                fail("the render launched no K2 (decoder MLP)")
+            if paths["render"]["decoder_mlp"] <= 0 or paths["render"]["trilinear_gather"] <= 0:
+                fail("the render launched no K2 (decoder MLP) or no K7 (trilinear lookup)")
             drive("render_importance", phase_render, torch, dev, slam, IMPORTANCE_N)
             if paths["render_importance"]["decoder_mlp"] <= 0:
                 fail("the resampled render launched no K2 (decoder MLP)")
@@ -3325,7 +3511,7 @@ def main() -> None:
         def launches(name):
             return sum(p[name] for p in paths.values())
 
-        k1, k2, k3, k4, k5, k6 = kern["K1"], kern["K2"], kern["K3"], kern["K4"], kern["K5"], kern["K6"]
+        k1, k2, k3, k4, k5, k6, k7 = (kern[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"))
         line = {"kernels": [
             {"name": "halo_fold", "route": "cuda", "source": "attentive_dfprior_tpu_torch/csrc/halo_fold.cu",
              "replaces": "attentive_dfprior_tpu/ops/pallas/halo_fold_kernel.py:87",
@@ -3367,6 +3553,16 @@ def main() -> None:
              "scannet_ms": k6["scannet"]["ms"], "scannet_plain_ms": k6["scannet"]["plain_ms"],
              "scannet_bound_ms": k6["scannet"]["bound_ms"], "scannet_device_ms": k6["scannet"]["device_ms"],
              "scannet_route_host_ms": k6["scannet"]["route_host_ms"]},
+            {"name": "trilinear_gather", "route": "cuda",
+             "source": "attentive_dfprior_tpu_torch/csrc/trilinear_gather.cu",
+             "replaces": "attentive_dfprior_tpu_torch/ops/grid_sample.py:trilinear_sample (XLA gathers in the JAX "
+                         "package)",
+             "launches": launches("trilinear_gather"), "max_abs_err": 0.0,
+             "ms": k7["render high"]["ms"], "plain_ms": k7["render high"]["plain_ms"],
+             "bound_ms": k7["render high"]["bound_ms"], "bound_by": "bytes",
+             "library_ms": k7["render high"]["library_ms"],
+             "pair_ms": k7["render high+colour"]["ms"], "pair_plain_ms": k7["render high+colour"]["plain_ms"],
+             "pair_bound_ms": k7["render high+colour"]["bound_ms"], "path_launches": k7["paths"]},
         ]}
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -157,7 +157,7 @@ def test_measure_workload_tiny_on_cpu(tiny):
     assert rec["samples_per_ray"] == 48 and rec["device_peak_mem_gb"] is None
     assert rec["device_mem_held_on_entry_gb"] is None
     assert rec["launches_per_cycle"] == {"halo_fold": 0, "decoder_mlp": 0, "cell_stencil": 0, "cell_scatter": 0,
-                                     "frustum_mask": 0}  # plain on the CPU
+                                     "frustum_mask": 0, "trilinear_gather": 0}  # plain on the CPU
 
 
 def test_main_prints_one_json_line_with_the_scannet_record(tiny, monkeypatch, capsys, tmp_path):

@@ -58,6 +58,17 @@ def _load(relpath: str, name: str):
     return mod
 
 
+@pytest.fixture
+def two_threads():
+    """Two torch threads for the test, the worker's count restored after it
+    (a later test on the same worker compares runs bit for bit, and CPU
+    BLAS may round a row differently at another thread count)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _sockets_allowed() -> bool:
     try:
         s = socket.socket()
@@ -89,8 +100,7 @@ def test_apply_matches_jax(variant):
     assert a == b and a != cfg
 
 
-def test_ablate_tracking_runs_two_variants(tmp_path):
-    torch.set_num_threads(2)
+def test_ablate_tracking_runs_two_variants(tmp_path, two_threads):
     out = tmp_path / "ablate.json"
     results = ablate_tracking.main(
         ["--variants", "base,nodyn", "--end_idx", "3", "--device", "cpu", "--out", str(out),
@@ -202,8 +212,7 @@ def _jax_row_names():
     return names
 
 
-def test_profile_rows_finite_and_named_as_jax(monkeypatch):
-    torch.set_num_threads(2)
+def test_profile_rows_finite_and_named_as_jax(monkeypatch, two_threads):
     monkeypatch.setitem(bench.WORKLOADS, "tiny", dict(
         bound=[[0.0, 4.0], [-1.0, 3.0], [-2.0, 2.0]], cam=dict(H=24, W=32, fx=24.0, fy=24.0, cx=15.5, cy=11.5),
         F=2, map_iters={}, pixels=40, track_iters=0, track_pixels=0))
@@ -220,7 +229,7 @@ def test_profile_rows_finite_and_named_as_jax(monkeypatch):
         assert r["ms_per_iter"] > 0 and len(r["rep_ms"]) == 1
         assert r["device_ms_per_iter"] is None  # no profiler pass on the CPU
         assert r["launches_per_iter"] == {"halo_fold": 0, "decoder_mlp": 0, "cell_stencil": 0, "cell_scatter": 0,
-                                           "frustum_mask": 0}
+                                           "frustum_mask": 0, "trilinear_gather": 0}
     only = profile_mapping.profile("cpu", iters=1, reps=1, only="cellgrad", workload="tiny", rays=40)
     assert sorted(only) == sorted(n for n in rows if "cellgrad" in n)
 

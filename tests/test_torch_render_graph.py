@@ -48,6 +48,18 @@ CAM = dict(H=10, W=14, fx=12.0, fy=12.0, cx=6.5, cy=4.5)  # 140 rays
 TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_torch_ops.py's, against the JAX package
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread for each test, the worker's count restored after it:
+    a padded chunk is held bit for bit to the unpadded one, and CPU BLAS
+    splits a 2**17-row product between threads, which at two threads rounds
+    some rows of the decoders' output layer otherwise than the 300-row one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _scene(seed=5):
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(np.asarray, init_df_decoders(jax.random.PRNGKey(seed)))
